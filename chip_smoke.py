@@ -1,0 +1,390 @@
+"""Smoke run of the PyTorch/CUDA port on one NVIDIA GPU.
+
+    python3 chip_smoke.py
+
+Builds the port's two kernels from ``raft_tla_tpu_torch/csrc`` with nvcc,
+holds each against its plain PyTorch version on the card, drives the port's
+main path (``python -m raft_tla_tpu_torch.check``, the device engine) on
+verified configurations and at the reference universe's full size, and
+audits the finished store with the fingerprint kernel.  Imports nothing of
+JAX or of ``raft_tla_tpu``.
+
+Phases (each prints a line; any failure exits non-zero):
+
+0. the card, torch and CUDA versions; the kernel builds, in parallel;
+1. K1 (csrc/step.cu) against the plain step on reachable rows, four configs;
+2. K2 (csrc/fingerprint.cu) against the plain fingerprint, 1,048,576 rows;
+3. verified counts through the CLI entry, a seeded violation (exit 12, trace
+   replays through the interpreter) and a deadlock (exit 11);
+4. the reference universe (3 servers, 2 values, t2 l1 m1) to exhaustion:
+   15,872,151 states, diameter 53, 40,060,419 transitions; then the store
+   audit with K2.
+
+The line before the last is ``{"kernels": [...]}``; the last line is
+``{"ok": true, "device": {...}}``.  Tolerance everywhere: bit-exact (all
+outputs are int32, uint32 bits or bools).
+"""
+
+from __future__ import annotations
+
+import contextlib
+import io
+import json
+import subprocess
+import sys
+import time
+from pathlib import Path
+
+import numpy as np
+import torch
+
+ROOT = Path(__file__).resolve().parent
+WORK = ROOT / "build" / "chip_smoke"
+HBM_BYTES_PER_S = 3.35e12          # H100 SXM device memory
+INT_OPS_PER_S = 67e12              # CUDA-core fp32 peak; int32 is no faster
+
+# Phase-4 universe and the counts the JAX package's DeviceEngine found for
+# it on the CPU (chunk 1024, Capacities(n_states=1 << 25)).
+REAL = dict(servers=3, values=2, max_term=2, max_log=1, max_msgs=1,
+            invariants="NoTwoLeaders LogMatching CommittedWithinLog")
+REAL_EXPECT = (15_872_151, 53, 40_060_419)
+MAIN_CHUNK = 8192
+
+
+def fail(msg: str) -> None:
+    print(f"FAIL: {msg}", flush=True)
+    sys.exit(1)
+
+
+def say(msg: str) -> None:
+    print(msg, flush=True)
+
+
+def cuda_ms(fn, reps: int, trials: int = 5) -> tuple:
+    """``(median, max - min)`` over ``trials`` of the mean milliseconds of
+    ``fn`` across ``reps`` back-to-back launches (CUDA events, after
+    ``reps`` warm-up launches)."""
+    for _ in range(reps):
+        fn()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(trials):
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        a.record()
+        for _ in range(reps):
+            fn()
+        b.record()
+        b.synchronize()
+        times.append(a.elapsed_time(b) / reps)
+    return float(np.median(times)), max(times) - min(times)
+
+
+def step_bytes(B: int, A: int, W: int, n_inv: int) -> int:
+    """Bytes one K1 launch must move: the rows read once, every output
+    written once (int32 svecs and keys, one byte per bool)."""
+    return B * W * 4 + B * A * (W * 4 + 8 + 3 + n_inv)
+
+
+def write_cfg(name: str, servers: int, values: int, invariants: str) -> str:
+    WORK.mkdir(parents=True, exist_ok=True)
+    srv = ", ".join(f"s{i + 1}" for i in range(servers))
+    val = ", ".join(f"v{i + 1}" for i in range(values))
+    path = WORK / f"{name}.cfg"
+    path.write_text(
+        f"SPECIFICATION Spec\nINVARIANT {invariants}\nCONSTANTS\n"
+        f"    Server = {{{srv}}}\n    Value = {{{val}}}\n"
+        '    Follower = "Follower"\n    Candidate = "Candidate"\n'
+        '    Leader = "Leader"\n    Nil = "Nil"\n')
+    return str(path)
+
+
+def run_cli(argv):
+    """The port's CLI in-process: (exit code, engine, result, stdout)."""
+    from raft_tla_tpu_torch import check
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        code, eng, res = check.run(argv)
+    return code, eng, res, buf.getvalue()
+
+
+def phase0():
+    from raft_tla_tpu_torch.ops import build, pallas_fp, pallas_step
+    from raft_tla_tpu_torch.config import Bounds
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True, timeout=60)
+    say(smi.stdout.strip())           # the card's name and power limit
+    say(f"torch {torch.__version__} cuda {torch.version.cuda} "
+        f"python {sys.version.split()[0]}")
+    layouts = {(3, 2, 2, 1, 2), (3, 2, 2, 1, 1), (3, 1, 2, 0, 1),
+               (3, 1, 2, 1, 2), (2, 1, 2, 0, 2), (2, 2, 2, 1, 2),
+               (3, 1, 3, 0, 4), (1, 1, 2, 0, 2)}
+    jobs = {(pallas_fp.SOURCE, ())}
+    for lay in layouts:
+        d = pallas_step.layout_defines(Bounds(*lay))
+        jobs.add((pallas_step.SOURCE, tuple(sorted(d.items()))))
+    t0 = time.monotonic()
+    build.prebuild(sorted(jobs))
+    say(f"phase 0: built {len(jobs)} kernel libraries (nvcc sm_90a, in "
+        f"parallel) in {time.monotonic() - t0:.1f} s")
+    for key in ((3, 2, 2, 1, 1), (3, 2, 2, 1, 2)):
+        d = pallas_step.layout_defines(Bounds(*key))
+        say(f"ptxas step {d}: " + build.ptxas_report(
+            pallas_step.SOURCE, d).replace("\n", " | "))
+    say("ptxas fingerprint: " + build.ptxas_report(
+        pallas_fp.SOURCE).replace("\n", " | "))
+    return smi.stdout.strip()
+
+
+def reachable_rows(config, n: int, init_override=None) -> torch.Tensor:
+    """The first ``n`` rows the port's engine discovers (a few levels)."""
+    from raft_tla_tpu_torch.device_engine import Capacities, DeviceEngine
+    eng = DeviceEngine(config, Capacities(n_states=1 << 20, levels=64))
+    res = eng.check(init_override=init_override, max_chunks=160)
+    return eng.carry["store"][:min(n, res.n_states)].clone()
+
+
+def compare_step(out, ref) -> tuple:
+    """(mismatching lanes, max |difference|) under the step contract:
+    ``valid`` on every lane, everything else where ``valid`` is true."""
+    val = ref["valid"]
+    bad = int((out["valid"] != ref["valid"]).sum())
+    err = 0
+    for k in ("svecs", "overflow", "fp_hi", "fp_lo", "inv_ok", "con_ok"):
+        d = (out[k].to(torch.int64) - ref[k].to(torch.int64)).abs()
+        if d.dim() > 2:
+            d = d.flatten(2).amax(-1) if d.shape[2] else \
+                torch.zeros(val.shape, dtype=torch.int64, device=val.device)
+        d = torch.where(val, d, 0)
+        bad += int((d > 0).sum())
+        err = max(err, int(d.max()))
+    return bad, err
+
+
+def phase1(results):
+    from raft_tla_tpu_torch.config import Bounds, CheckConfig
+    from raft_tla_tpu_torch.models import interp, spec as SP
+    from raft_tla_tpu_torch.ops import kernels, pallas_step
+    from raft_tla_tpu_torch.ops import state as st
+    rep = Bounds(3, 1, 2, 1, 2)
+    leader = interp.init_state(rep)._replace(
+        role=(SP.LEADER, SP.FOLLOWER, SP.FOLLOWER), term=(2, 2, 2),
+        votedFor=(1, 1, 1))
+    cases = [
+        ("full 3s/2v t2 l1 m2", Bounds(3, 2, 2, 1, 2), "full",
+         ("NoTwoLeaders", "LogMatching", "CommittedWithinLog",
+          "LeaderCompleteness", "NaiveNoTwoLeaders"), None),
+        ("full 3s/2v t2 l1 m1", Bounds(3, 2, 2, 1, 1), "full",
+         ("NoTwoLeaders", "LogMatching", "CommittedWithinLog"), None),
+        ("election 3s/1v t2 l0 m1", Bounds(3, 1, 2, 0, 1), "election",
+         ("NoTwoLeaders",), None),
+        ("replication 3s/1v t2 l1 m2", rep, "replication",
+         ("LogMatching", "CommittedWithinLog", "LeaderCompleteness"), leader),
+    ]
+    dev = torch.device("cuda")
+    for name, b, spec, invs, start in cases:
+        cfg = CheckConfig(bounds=b, spec=spec, invariants=invs, chunk=1024)
+        rows = reachable_rows(cfg, MAIN_CHUNK, start)
+        k1 = pallas_step.build_step(b, spec, invs, dev)
+        plain = kernels.build_step(b, spec, invs)
+        out, ref = k1(rows), plain(rows)
+        torch.cuda.synchronize()
+        bad, err = compare_step(out, ref)
+        B, A, W = out["svecs"].shape
+        ms, spread = cuda_ms(lambda: k1(rows), 20)
+        plain_ms, _ = cuda_ms(lambda: plain(rows), 2, trials=3)
+        nbytes = step_bytes(B, A, W, len(invs))
+        # ops: the fingerprint's multiply-adds alone, a lower bound
+        t_bytes = nbytes / HBM_BYTES_PER_S
+        t_ops = B * A * (4 * W + 12) / INT_OPS_PER_S
+        bound = max(t_bytes, t_ops) * 1e3
+        say(f"phase 1: K1 {name}: rows {B} lanes {B * A} (A={A}, W={W}) "
+            f"valid {int(ref['valid'].sum())} mismatches {bad} "
+            f"max_abs_err {err}; K1 {ms:.4f} ms (spread {spread:.4f}), plain "
+            f"{plain_ms:.2f} ms "
+            f"per chunk; bound {bound:.4f} ms ({nbytes} bytes)")
+        if bad:
+            fail(f"K1 disagrees with the plain step on {name}")
+        if st.Layout.of(b).width == 57:       # the phase-4 layout
+            results["step"] = dict(
+                mismatches=bad, max_abs_err=err, ms=ms, plain_ms=plain_ms,
+                bound_ms=bound,
+                bound_by="bytes" if t_bytes >= t_ops else "operations")
+
+
+def phase2(results):
+    from raft_tla_tpu_torch.ops import fingerprint as fpr, pallas_fp
+    B, W = 1 << 20, 60
+    rng = np.random.default_rng(20260501)
+    rows = torch.as_tensor(rng.integers(-2**31, 2**31, size=(B, W),
+                                        dtype=np.int64).astype(np.int32),
+                           device="cuda")
+    consts = fpr.torch_constants(W, rows.device)
+    hi, lo = pallas_fp.fingerprint_rows(rows)
+    rh, rl = fpr.fingerprint(rows, consts)
+    torch.cuda.synchronize()
+    bad = int(((hi != rh) | (lo != rl)).sum())
+    err = int(torch.maximum((hi.to(torch.int64) - rh).abs(),
+                            (lo.to(torch.int64) - rl).abs()).max())
+    ms, spread = cuda_ms(lambda: pallas_fp.fingerprint_rows(rows), 50)
+    plain_ms, _ = cuda_ms(lambda: fpr.fingerprint(rows, consts), 5, trials=3)
+    nbytes = B * W * 4 + 2 * B * 4
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, B * (4 * W + 12) / INT_OPS_PER_S
+    bound = max(t_bytes, t_ops) * 1e3
+    say(f"phase 2: K2 {B} rows x W={W}: mismatches {bad}; K2 {ms:.4f} ms "
+        f"(spread {spread:.4f}) "
+        f"({nbytes / ms / 1e6:.1f} GB/s), plain {plain_ms:.3f} ms; bound "
+        f"{bound:.4f} ms")
+    if bad:
+        fail("K2 disagrees with the plain fingerprint")
+    results["fingerprint"] = dict(
+        mismatches=bad, max_abs_err=err, ms=ms, plain_ms=plain_ms,
+        bound_ms=bound, bound_by="bytes" if t_bytes >= t_ops else "operations")
+
+
+def phase3():
+    from raft_tla_tpu_torch.config import Bounds, CheckConfig
+    from raft_tla_tpu_torch import check
+    from raft_tla_tpu_torch.device_engine import Capacities, DeviceEngine
+    from raft_tla_tpu_torch.models import interp, spec as SP
+    from raft_tla_tpu_torch.ops import msgbits as mb
+    verified = [
+        ("election 2s/1v t2 l0 m2", 2, 1, "election", (2, 0, 2), 3014, 17),
+        ("election-3s 3s/1v t2 l0 m1", 3, 1, "election", (2, 0, 1),
+         142538, 31),
+        ("full 2s/2v t2 l1 m2", 2, 2, "full", (2, 1, 2), 74897, 32),
+    ]
+    for name, n, v, spec, (mt, ml, mm), want_n, want_d in verified:
+        cfg = write_cfg(f"v{n}{v}{spec}", n, v, "NoTwoLeaders")
+        t0 = time.monotonic()
+        code, _eng, res, out = run_cli([
+            cfg, "--spec", spec, "--max-term", str(mt), "--max-log", str(ml),
+            "--max-msgs", str(mm), "--chunk", "4096", "--cap", str(1 << 18)])
+        wall = time.monotonic() - t0
+        got = (res.n_states, res.diameter) if res else None
+        say(f"phase 3: {name}: exit {code}, states/diameter {got} "
+            f"(verified {want_n}/{want_d}), {wall:.2f} s")
+        if code != 0 or got != (want_n, want_d):
+            fail(f"{name}: {out[-400:]}")
+    # The seeded NaiveNoTwoLeaders violation (a crafted start state).
+    b = Bounds(n_servers=3, n_values=1, max_term=3, max_log=0, max_msgs=4)
+    start = interp.init_state(b)._replace(
+        role=(SP.LEADER, SP.FOLLOWER, SP.CANDIDATE), term=(2, 3, 3),
+        votedFor=(1, 3, 0), vGrant=(0b011, 0, 0b100),
+        msgs=(((mb.rv_response(3, 1, 1, 2)), 1),))
+    cfgv = CheckConfig(bounds=b, spec="election",
+                       invariants=("NaiveNoTwoLeaders",), chunk=256)
+    res = DeviceEngine(cfgv, Capacities(n_states=1 << 15, levels=64)
+                       ).check(init_override=start)
+    code = check.verdict_code(res)
+    trace = res.violation.trace if res.violation else []
+    replays = bool(trace) and trace[0][1] == start and all(
+        cur in [t for _i, t in interp.successors(prev, b, spec="election")]
+        for (_l, prev), (_l2, cur) in zip(trace, trace[1:]))
+    say(f"phase 3: seeded NaiveNoTwoLeaders violation: exit {code}, trace "
+        f"length {len(trace)}, replays through interp.successors: {replays}")
+    if code != check.EXIT_VIOLATION or not replays:
+        fail("seeded violation")
+    cfg = write_cfg("deadlock1s", 1, 1, "NoTwoLeaders")
+    code, _e, res, out = run_cli([cfg, "--spec", "election", "--deadlock",
+                                  "--max-term", "2", "--max-log", "0",
+                                  "--max-msgs", "2"])
+    say(f"phase 3: 1-server election --deadlock: exit {code}")
+    if code != check.EXIT_DEADLOCK or "Deadlock reached" not in out:
+        fail(f"deadlock: {out[-400:]}")
+
+
+def phase4(results):
+    from raft_tla_tpu_torch.ops import fingerprint as fpr, pallas_fp
+    from raft_tla_tpu_torch.ops import pallas_step
+    cfg = write_cfg("real", REAL["servers"], REAL["values"],
+                    REAL["invariants"])
+    argv = [cfg, "--spec", "full", "--max-term", str(REAL["max_term"]),
+            "--max-log", str(REAL["max_log"]), "--max-msgs",
+            str(REAL["max_msgs"]), "--chunk", str(MAIN_CHUNK),
+            "--cap", str(1 << 25), "--levels", "128"]
+    pallas_step.launches = 0
+    pallas_fp.launches = 0
+    torch.cuda.synchronize()
+    t0 = time.monotonic()
+    code, eng, res, out = run_cli(argv)
+    torch.cuda.synchronize()
+    wall = time.monotonic() - t0
+    launches = {"step": pallas_step.launches,
+                "fingerprint": pallas_fp.launches}
+    if res is None:
+        fail(f"real-size run: {out[-600:]}")
+    st = eng.stats
+    got = (res.n_states, res.diameter, res.n_transitions)
+    chunks = st["chunks"]
+    say(f"phase 4: real size full 3s/2v t2 l1 m1: exit {code}; states "
+        f"{got[0]}, diameter {got[1]}, transitions {got[2]} (expected "
+        f"{REAL_EXPECT}); wall {wall:.2f} s, {res.n_states / wall:,.0f} "
+        f"states/s; chunks {chunks}, K1 launches {launches['step']}, K2 "
+        f"launches {launches['fingerprint']}; dedup "
+        f"{1e3 * st['dedup_s'] / chunks:.3f} ms/chunk; host syncs "
+        f"{st['syncs'] / chunks:.2f}/chunk; peak device memory "
+        f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+    if code != 0 or got != REAL_EXPECT:
+        fail("real-size counts differ from the reference")
+    if min(launches.values()) < 1:
+        fail(f"a kernel of the main path never launched: {launches}")
+    # Audit: the stored rows' keys by K2 equal the plain version's and are
+    # pairwise distinct.
+    store = eng.carry["store"][:res.n_states]
+    consts = fpr.torch_constants(store.shape[1], store.device)
+    keys, bad = [], 0
+    for s in range(0, store.shape[0], 1 << 21):
+        blk = store[s:s + (1 << 21)]
+        hi, lo = pallas_fp.fingerprint_rows(blk)
+        rh, rl = fpr.fingerprint(blk, consts)
+        bad += int(((hi != rh) | (lo != rl)).sum())
+        keys.append(hi.to(torch.int64) * (1 << 32)
+                    + (lo.to(torch.int64) & 0xFFFFFFFF))
+    k = torch.sort(torch.cat(keys)).values
+    dup = int((k[1:] == k[:-1]).sum())
+    say(f"phase 4: store audit with K2: {res.n_states} rows, mismatches "
+        f"{bad}, duplicate keys {dup}")
+    if bad or dup:
+        fail("store audit")
+    results["step"]["launches"] = launches["step"]
+    results["fingerprint"]["launches"] = launches["fingerprint"]
+
+
+def main() -> int:
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device visible to torch", file=sys.stderr)
+        return 2
+    t_all = time.monotonic()
+    card = phase0()
+    results = {}
+    phase1(results)
+    phase2(results)
+    phase3()
+    phase4(results)
+    meta = {
+        "step": ("cuda", "raft_tla_tpu_torch/csrc/step.cu",
+                 "raft_tla_tpu/ops/pallas_step.py:131"),
+        "fingerprint": ("cuda", "raft_tla_tpu_torch/csrc/fingerprint.cu",
+                        "raft_tla_tpu/ops/pallas_fp.py:80"),
+    }
+    kernels = []
+    for name, (route, src, repl) in meta.items():
+        r = results[name]
+        kernels.append({
+            "name": name, "route": route, "source": src, "replaces": repl,
+            "launches": r["launches"], "mismatches": r["mismatches"],
+            "max_abs_err": r["max_abs_err"], "ms": r["ms"],
+            "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
+            "bound_by": r["bound_by"], "library_ms": None})
+    say(f"total {time.monotonic() - t_all:.1f} s on {card}")
+    print(json.dumps({"kernels": kernels}))
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

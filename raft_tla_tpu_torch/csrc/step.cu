@@ -1,0 +1,678 @@
+// K1 — the fused frontier step, hand-written for Hopper.
+//
+// Replaces: raft_tla_tpu/ops/pallas_step.py `build_step_megakernel`
+// (:131; kernel body `kernel` at :175, launch `_call` at :184,
+// pl.pallas_call at :194), in its symmetry-free parity-mode form.  The TPU
+// kernel stages the XLA step's jaxpr over 128-row blocks so that the
+// [B, A, W] candidate block stays in VMEM between stages; this kernel
+// computes the same lanes as the plain torch step (ops/kernels.build_step):
+// unpack, the action family's guard and effect, canonicalize (message-slot
+// sort), pack, fingerprint, invariants, StateConstraint.
+//
+// Design: one thread per (row, action lane).  A block holds R = 256 / A
+// rows; it copies their W words once into shared memory, and each of the A
+// threads of a row unpacks the row into a struct in registers, applies its
+// lane's family (read from a small per-lane table), and finishes the
+// candidate without it ever touching device memory between stages: every
+// output is written once.  The layout's sizes (N servers, L log capacity,
+// S message slots, hence W) are compile-time macros; build.py compiles one
+// library per layout.  The struct sits in the thread's local memory, which
+// stays in L1 (see `rd`/`wr` below for why not in registers).
+//
+// What bounds it on the H100: bytes written.  Each lane writes its packed
+// successor (W int32) plus its masks and keys, so the output is about
+// A * (W + 5) * 4 bytes per input row of W * 4 bytes; the integer work per
+// lane is a few hundred operations, which the card's integer rate covers
+// many times over.  Lanes of a warp run different families and diverge;
+// that costs issue slots, not bytes.
+//
+// Contract (held against the plain step): `valid` equal on every lane;
+// every other output bit-equal where `valid` is true.  Invalid lanes are
+// written as zeros (the engine never reads them).
+#include <cuda_runtime.h>
+
+#include <cstdint>
+
+#include "fp.cuh"
+
+#if !defined(RT_N) || !defined(RT_L) || !defined(RT_S)
+#error "compile with -DRT_N=<servers> -DRT_L=<log capacity> -DRT_S=<slots>"
+#endif
+
+namespace {
+
+constexpr int N = RT_N, L = RT_L, S = RT_S;
+// Flat-vector offsets: ops/state.STATE_FIELDS order.
+constexpr int O_ROLE = 0, O_TERM = N, O_VOTED = 2 * N, O_COMMIT = 3 * N,
+              O_LOGLEN = 4 * N, O_LOGTERM = 5 * N, O_LOGVAL = 5 * N + N * L,
+              O_VRESP = 5 * N + 2 * N * L, O_VGRANT = O_VRESP + N,
+              O_NEXT = O_VGRANT + N, O_MATCH = O_NEXT + N * N,
+              O_MHI = O_MATCH + N * N, O_MLO = O_MHI + S, O_MCNT = O_MLO + S,
+              W = O_MCNT + S;
+
+// models/spec.FAMILY_CODES order.
+enum Family {
+  RESTART, TIMEOUT, REQUESTVOTE, BECOMELEADER, CLIENTREQUEST, ADVANCECOMMIT,
+  APPENDENTRIES, RECEIVE, DUPLICATE, DROP
+};
+enum Role { FOLLOWER = 0, CANDIDATE = 1, LEADER = 2 };
+enum MType { M_RVREQ = 1, M_RVRESP = 2, M_AEREQ = 3, M_AERESP = 4 };
+// models/invariants.CODES order.
+enum Invariant {
+  INV_ELECTION_SAFETY, INV_NAIVE_NO_TWO_LEADERS, INV_LOG_MATCHING,
+  INV_COMMITTED_WITHIN_LOG, INV_LEADER_COMPLETENESS
+};
+
+constexpr int kMaxInv = 8;
+constexpr int kThreads = 256;
+
+struct InvList {
+  int n;
+  int code[kMaxInv];
+};
+
+struct Limits {
+  int max_term, max_log, max_msgs, max_dup;
+};
+
+struct St {
+  int role[N], term[N], voted[N], commit[N], loglen[N];
+  int logterm[N][L], logval[N][L];
+  int vresp[N], vgrant[N];
+  int next[N][N], match[N][N];
+  int mhi[S], mlo[S], mcnt[S];
+};
+
+// -- struct access at a runtime index ---------------------------------------
+//
+// A runtime index reads and writes the struct's arrays directly, so the
+// compiler keeps the struct in local memory (L1-resident, a few hundred
+// bytes a thread).  The first form of this kernel selected with fully
+// unrolled compare-and-assign loops to keep the struct in registers; ptxas
+// at its default optimization level gave wrong lanes for it on sm_90a
+// (right under -Xptxas -O0, -G, and a host emulation of the same source),
+// so it was replaced by this form, which is right at the same speed.
+
+__device__ __forceinline__ int clampi(int i, int m) {
+  return i < 0 ? 0 : (i > m - 1 ? m - 1 : i);
+}
+
+// a[i], i clamped into range (as a JAX gather with a traced index is).
+template <int M>
+__device__ __forceinline__ int rd(const int (&a)[M], int i) {
+  return a[clampi(i, M)];
+}
+
+template <int M, int K>
+__device__ __forceinline__ int rd2(const int (&a)[M][K], int i, int j) {
+  return a[clampi(i, M)][clampi(j, K)];
+}
+
+// a[i] = v; an index out of range writes nothing (a one-hot update).
+template <int M>
+__device__ __forceinline__ void wr(int (&a)[M], int i, int v) {
+  if (i >= 0 && i < M) a[i] = v;
+}
+
+template <int M, int K>
+__device__ __forceinline__ void wr2(int (&a)[M][K], int i, int j, int v) {
+#pragma unroll
+  for (int x = 0; x < M; ++x)
+#pragma unroll
+    for (int y = 0; y < K; ++y)
+      if (x == i && y == j) a[x][y] = v;
+}
+
+template <int M, int K>
+__device__ __forceinline__ void wr_row(int (&a)[M][K], int i, int v) {
+#pragma unroll
+  for (int x = 0; x < M; ++x)
+#pragma unroll
+    for (int y = 0; y < K; ++y)
+      if (x == i) a[x][y] = v;
+}
+
+// -- message fields: ops/msgbits.py ----------------------------------------
+
+__device__ __forceinline__ int fld(int w, int sh, int wd) {
+  return (w >> sh) & ((1 << wd) - 1);
+}
+__device__ __forceinline__ int mtype(int hi) { return fld(hi, 0, 3); }
+__device__ __forceinline__ int mterm(int hi) { return fld(hi, 3, 6); }
+__device__ __forceinline__ int fa(int hi) { return fld(hi, 9, 6); }
+__device__ __forceinline__ int fb(int hi) { return fld(hi, 15, 6); }
+__device__ __forceinline__ int msrc(int hi) { return fld(hi, 21, 4); }
+__device__ __forceinline__ int mdst(int hi) { return fld(hi, 25, 4); }
+__device__ __forceinline__ int fc(int lo) { return fld(lo, 0, 1); }
+__device__ __forceinline__ int fd(int lo) { return fld(lo, 1, 6); }
+__device__ __forceinline__ int fe(int lo) { return fld(lo, 7, 4); }
+__device__ __forceinline__ int ff(int lo) { return fld(lo, 11, 6); }
+
+// Shifts through uint32, so the bits match int32 two's-complement packing.
+__device__ __forceinline__ int shl(int x, int s) {
+  return static_cast<int>(static_cast<uint32_t>(x) << s);
+}
+__device__ __forceinline__ int pack_hi(int mt, int term, int a, int b, int s,
+                                       int d) {
+  return mt | shl(term, 3) | shl(a, 9) | shl(b, 15) | shl(s, 21) | shl(d, 25);
+}
+__device__ __forceinline__ int pack_lo(int c, int d, int e, int f) {
+  return c | shl(d, 1) | shl(e, 7) | shl(f, 11);
+}
+
+// -- bag operations (raft.tla:106-130) -------------------------------------
+
+// WithMessage; returns the overflow flag (no free slot for a new message).
+__device__ __forceinline__ bool bag_add(St& s, int hi, int lo) {
+  bool exists = false, has_empty = false;
+#pragma unroll
+  for (int k = 0; k < S; ++k) {
+    exists |= s.mhi[k] == hi && s.mlo[k] == lo && s.mcnt[k] > 0;
+    has_empty |= s.mcnt[k] == 0;
+  }
+  bool seen_empty = false;
+#pragma unroll
+  for (int k = 0; k < S; ++k) {
+    const bool match = s.mhi[k] == hi && s.mlo[k] == lo && s.mcnt[k] > 0;
+    const bool empty = s.mcnt[k] == 0;
+    const bool ins = !exists && empty && !seen_empty;
+    seen_empty |= empty;
+    if (ins) {
+      s.mhi[k] = hi;
+      s.mlo[k] = lo;
+    }
+    s.mcnt[k] += static_cast<int>(match) + static_cast<int>(ins);
+  }
+  return !exists && !has_empty;
+}
+
+// WithoutMessage; a no-op when absent.
+__device__ __forceinline__ void bag_remove(St& s, int hi, int lo) {
+#pragma unroll
+  for (int k = 0; k < S; ++k) {
+    const bool match = s.mhi[k] == hi && s.mlo[k] == lo && s.mcnt[k] > 0;
+    const int c2 = s.mcnt[k] - static_cast<int>(match);
+    if (match && c2 == 0) {
+      s.mhi[k] = 0;
+      s.mlo[k] = 0;
+    }
+    s.mcnt[k] = c2;
+  }
+}
+
+// Reply: remove the request, then add the response.
+__device__ __forceinline__ bool reply(St& s, int resp_hi, int resp_lo,
+                                      int req_hi, int req_lo) {
+  bag_remove(s, req_hi, req_lo);
+  return bag_add(s, resp_hi, resp_lo);
+}
+
+__device__ __forceinline__ int last_term(const St& s, int i) {
+  const int ln = rd(s.loglen, i);
+  return ln > 0 ? rd2(s.logterm, i, ln - 1) : 0;
+}
+
+// -- the message handlers of Receive(m) (raft.tla:284-436) -----------------
+
+// Returns whether a branch was enabled; sets *ovf for the taken branch.
+__device__ __forceinline__ bool receive(St& s, int slot, bool* ovf) {
+  const int hi = rd(s.mhi, slot), lo = rd(s.mlo, slot);
+  const int i = mdst(hi), j = msrc(hi);
+  const int mt = mterm(hi), mty = mtype(hi);
+  const int ct = rd(s.term, i), role_i = rd(s.role, i);
+  const int len_i = rd(s.loglen, i);
+  if (mt > ct) {  // UpdateTerm (raft.tla:406-412): message kept
+    wr(s.term, i, mt);
+    wr(s.role, i, FOLLOWER);
+    wr(s.voted, i, 0);
+    return true;
+  }
+  if (mty == M_RVREQ) {  // HandleRequestVoteRequest (raft.tla:284-303)
+    const int lt = last_term(s, i);
+    const bool log_ok = fa(hi) > lt || (fa(hi) == lt && fb(hi) >= len_i);
+    const int voted_i = rd(s.voted, i);
+    const bool grant =
+        mt == ct && log_ok && (voted_i == 0 || voted_i == j + 1);
+    if (grant) wr(s.voted, i, j + 1);
+    *ovf = reply(s, pack_hi(M_RVRESP, ct, grant, 0, i, j), 0, hi, lo);
+    return true;
+  }
+  if (mty == M_RVRESP && mt < ct) {  // DropStaleResponse (raft.tla:415-418)
+    bag_remove(s, hi, lo);
+    return true;
+  }
+  if (mty == M_RVRESP && mt == ct) {  // HandleRequestVoteResponse (:307-321)
+    const int bit = shl(1, j);
+    wr(s.vresp, i, rd(s.vresp, i) | bit);
+    if (fa(hi) > 0) wr(s.vgrant, i, rd(s.vgrant, i) | bit);
+    bag_remove(s, hi, lo);
+    return true;
+  }
+  if (mty == M_AEREQ) {  // HandleAppendEntriesRequest (raft.tla:327-389)
+    const int prev_idx = fa(hi), prev_term = fb(hi);
+    const int n_ent = fc(lo), ent_term = fd(lo), ent_val = fe(lo);
+    const bool log_ok =
+        prev_idx == 0 || (prev_idx > 0 && prev_idx <= len_i &&
+                          prev_term == rd2(s.logterm, i, prev_idx - 1));
+    if (mt < ct || (mt == ct && role_i == FOLLOWER && !log_ok)) {  // reject
+      *ovf = reply(s, pack_hi(M_AERESP, ct, 0, 0, i, j), 0, hi, lo);
+      return true;
+    }
+    if (mt == ct && role_i == CANDIDATE) {  // step down; message kept
+      wr(s.role, i, FOLLOWER);
+      return true;
+    }
+    if (mt == ct && role_i == FOLLOWER && log_ok) {  // accept
+      const int index = prev_idx + 1;
+      const int t_at = rd2(s.logterm, i, index - 1);
+      if (n_ent == 0 || (len_i >= index && t_at == ent_term)) {
+        // already done (raft.tla:356-374): commitIndex := mcommitIndex
+        wr(s.commit, i, ff(lo));
+        *ovf = reply(s, pack_hi(M_AERESP, ct, 1, prev_idx + n_ent, i, j), 0,
+                     hi, lo);
+        return true;
+      }
+      if (n_ent > 0 && len_i >= index && t_at != ent_term) {
+        // conflict: drop one entry off the tail; message kept
+        wr2(s.logterm, i, len_i - 1, 0);
+        wr2(s.logval, i, len_i - 1, 0);
+        wr(s.loglen, i, len_i - 1);
+        return true;
+      }
+      if (n_ent > 0 && len_i == prev_idx) {  // append (raft.tla:383-388)
+        wr2(s.logterm, i, len_i, ent_term);
+        wr2(s.logval, i, len_i, ent_val);
+        wr(s.loglen, i, len_i + 1);
+        *ovf = len_i >= L;
+        return true;
+      }
+    }
+    return false;
+  }
+  if (mty == M_AERESP && mt < ct) {  // DropStaleResponse
+    bag_remove(s, hi, lo);
+    return true;
+  }
+  if (mty == M_AERESP && mt == ct) {  // HandleAppendEntriesResponse
+    const bool succ = fa(hi) > 0;
+    const int match = fb(hi);
+    const int ni = rd2(s.next, i, j);
+    wr2(s.next, i, j, succ ? match + 1 : max(ni - 1, 1));
+    if (succ) wr2(s.match, i, j, match);
+    bag_remove(s, hi, lo);
+    return true;
+  }
+  return false;
+}
+
+// -- the action families (raft.tla:167-276, 421-450) -----------------------
+
+// Applies lane (fam, i, j, v, slot) to s in place; returns `valid` and sets
+// *ovf (already masked by valid).
+__device__ __forceinline__ bool apply(St& s, int fam, int i, int j, int v,
+                                      int slot, bool* ovf) {
+  bool valid = false, o = false;
+  switch (fam) {
+    case RESTART:
+      wr(s.role, i, FOLLOWER);
+      wr(s.vresp, i, 0);
+      wr(s.vgrant, i, 0);
+      wr_row(s.next, i, 1);
+      wr_row(s.match, i, 0);
+      wr(s.commit, i, 0);
+      valid = true;
+      break;
+    case TIMEOUT: {
+      const int r = rd(s.role, i), t = rd(s.term, i);
+      valid = r == FOLLOWER || r == CANDIDATE;
+      wr(s.role, i, CANDIDATE);
+      wr(s.term, i, t + 1);
+      wr(s.voted, i, 0);
+      wr(s.vresp, i, 0);
+      wr(s.vgrant, i, 0);
+      break;
+    }
+    case REQUESTVOTE: {
+      valid = rd(s.role, i) == CANDIDATE && ((rd(s.vresp, i) >> j) & 1) == 0;
+      const int hi =
+          pack_hi(M_RVREQ, rd(s.term, i), last_term(s, i), rd(s.loglen, i), i,
+                  j);
+      o = bag_add(s, hi, 0);
+      break;
+    }
+    case BECOMELEADER: {
+      valid = rd(s.role, i) == CANDIDATE &&
+              2 * __popc(static_cast<uint32_t>(rd(s.vgrant, i))) > N;
+      const int ln = rd(s.loglen, i);
+      wr(s.role, i, LEADER);
+      wr_row(s.next, i, ln + 1);
+      wr_row(s.match, i, 0);
+      break;
+    }
+    case CLIENTREQUEST: {
+      const int ln = rd(s.loglen, i), t = rd(s.term, i);
+      valid = rd(s.role, i) == LEADER;
+      wr2(s.logterm, i, ln, t);
+      wr2(s.logval, i, ln, v);
+      wr(s.loglen, i, ln + 1);
+      o = ln >= L;
+      break;
+    }
+    case ADVANCECOMMIT: {
+      valid = rd(s.role, i) == LEADER;
+      const int ln = rd(s.loglen, i);
+      int max_agree = 0;
+#pragma unroll
+      for (int idx = 1; idx <= L; ++idx) {
+        int cnt = 0;
+#pragma unroll
+        for (int k = 0; k < N; ++k)
+          cnt += (rd2(s.match, i, k) >= idx || k == i) ? 1 : 0;
+        if (2 * cnt > N && idx <= ln) max_agree = idx;
+      }
+      const int t_at = rd2(s.logterm, i, max_agree - 1);
+      const int commit = (max_agree > 0 && t_at == rd(s.term, i))
+                             ? max_agree
+                             : rd(s.commit, i);
+      wr(s.commit, i, commit);
+      break;
+    }
+    case APPENDENTRIES: {
+      valid = i != j && rd(s.role, i) == LEADER;
+      const int ni = rd2(s.next, i, j);
+      const int prev_idx = ni - 1;
+      const int prev_term = prev_idx > 0 ? rd2(s.logterm, i, prev_idx - 1) : 0;
+      const int last_entry = min(rd(s.loglen, i), ni);
+      const bool has_ent = ni <= last_entry;
+      const int ent_term = has_ent ? rd2(s.logterm, i, ni - 1) : 0;
+      const int ent_val = has_ent ? rd2(s.logval, i, ni - 1) : 0;
+      const int hi = pack_hi(M_AEREQ, rd(s.term, i), prev_idx, prev_term, i, j);
+      const int lo = pack_lo(has_ent, ent_term, ent_val,
+                             min(rd(s.commit, i), last_entry));
+      o = bag_add(s, hi, lo);
+      break;
+    }
+    case RECEIVE: {
+      const bool occupied = rd(s.mcnt, slot) > 0;
+      valid = receive(s, slot, &o) && occupied;
+      break;
+    }
+    case DUPLICATE:
+      valid = rd(s.mcnt, slot) > 0;
+#pragma unroll
+      for (int k = 0; k < S; ++k)
+        if (k == slot) s.mcnt[k] += 1;
+      break;
+    case DROP:
+      valid = rd(s.mcnt, slot) > 0;
+      bag_remove(s, rd(s.mhi, slot), rd(s.mlo, slot));
+      break;
+    default:
+      break;
+  }
+  *ovf = valid && o;
+  return valid;
+}
+
+// Message slots into canonical order: occupied first, then (hi, lo); empty
+// slots all-zero.  Odd-even transposition network (ops/state._network_sort).
+__device__ __forceinline__ void canonicalize(St& s) {
+  int occ[S];
+#pragma unroll
+  for (int k = 0; k < S; ++k) {
+    const bool o = s.mcnt[k] > 0;
+    occ[k] = o ? 0 : 1;
+    if (!o) {
+      s.mhi[k] = 0;
+      s.mlo[k] = 0;
+      s.mcnt[k] = 0;
+    }
+  }
+#pragma unroll
+  for (int r = 0; r < S; ++r)
+#pragma unroll
+    for (int a = r % 2; a < S - 1; a += 2) {
+      const int b = a + 1;
+      bool le = s.mlo[a] <= s.mlo[b];
+      le = s.mhi[a] < s.mhi[b] || (s.mhi[a] == s.mhi[b] && le);
+      le = occ[a] < occ[b] || (occ[a] == occ[b] && le);
+      if (!le) {
+        int t = occ[a]; occ[a] = occ[b]; occ[b] = t;
+        t = s.mhi[a]; s.mhi[a] = s.mhi[b]; s.mhi[b] = t;
+        t = s.mlo[a]; s.mlo[a] = s.mlo[b]; s.mlo[b] = t;
+        t = s.mcnt[a]; s.mcnt[a] = s.mcnt[b]; s.mcnt[b] = t;
+      }
+    }
+}
+
+// -- invariants (models/invariants.py) and the StateConstraint --------------
+
+__device__ __forceinline__ bool invariant(const St& s, int code) {
+  switch (code) {
+    case INV_ELECTION_SAFETY: {
+      bool ok = true;
+#pragma unroll
+      for (int a = 0; a < N; ++a)
+#pragma unroll
+        for (int b = a + 1; b < N; ++b)
+          ok &= !(s.role[a] == LEADER && s.role[b] == LEADER &&
+                  s.term[a] == s.term[b]);
+      return ok;
+    }
+    case INV_NAIVE_NO_TWO_LEADERS: {
+      int cnt = 0;
+#pragma unroll
+      for (int a = 0; a < N; ++a) cnt += s.role[a] == LEADER;
+      return cnt <= 1;
+    }
+    case INV_LOG_MATCHING: {
+      bool ok = true;
+#pragma unroll
+      for (int a = 0; a < N; ++a)
+#pragma unroll
+        for (int b = a + 1; b < N; ++b) {
+          bool prefix = true;
+#pragma unroll
+          for (int k = 0; k < L; ++k) {
+            const bool teq = s.logterm[a][k] == s.logterm[b][k];
+            prefix &= teq && s.logval[a][k] == s.logval[b][k];
+            const bool in_both = k < s.loglen[a] && k < s.loglen[b];
+            ok &= !(in_both && teq && !prefix);
+          }
+        }
+      return ok;
+    }
+    case INV_COMMITTED_WITHIN_LOG: {
+      bool ok = true;
+#pragma unroll
+      for (int a = 0; a < N; ++a) ok &= s.commit[a] <= s.loglen[a];
+      return ok;
+    }
+    case INV_LEADER_COMPLETENESS: {
+      bool ok = true;
+#pragma unroll
+      for (int a = 0; a < N; ++a)        // the later leader
+#pragma unroll
+        for (int b = 0; b < N; ++b)      // the committing server
+#pragma unroll
+          for (int k = 0; k < L; ++k) {
+            const bool must = s.role[a] == LEADER && s.term[a] > s.term[b] &&
+                              k < s.commit[b];
+            const bool has = k < s.loglen[a] &&
+                             s.logterm[a][k] == s.logterm[b][k] &&
+                             s.logval[a][k] == s.logval[b][k];
+            ok &= !(must && !has);
+          }
+      return ok;
+    }
+    default:
+      return false;
+  }
+}
+
+__device__ __forceinline__ bool constraint_ok(const St& s, const Limits& lim) {
+  bool ok = true;
+  int msgs = 0;
+#pragma unroll
+  for (int a = 0; a < N; ++a)
+    ok &= s.term[a] <= lim.max_term && s.loglen[a] <= lim.max_log;
+#pragma unroll
+  for (int k = 0; k < S; ++k) {
+    msgs += s.mcnt[k] > 0;
+    ok &= s.mcnt[k] <= lim.max_dup;
+  }
+  return ok && msgs <= lim.max_msgs;
+}
+
+// -- unpack / pack -----------------------------------------------------------
+
+__device__ __forceinline__ void unpack(const int* v, St& s) {
+#pragma unroll
+  for (int a = 0; a < N; ++a) {
+    s.role[a] = v[O_ROLE + a];
+    s.term[a] = v[O_TERM + a];
+    s.voted[a] = v[O_VOTED + a];
+    s.commit[a] = v[O_COMMIT + a];
+    s.loglen[a] = v[O_LOGLEN + a];
+    s.vresp[a] = v[O_VRESP + a];
+    s.vgrant[a] = v[O_VGRANT + a];
+#pragma unroll
+    for (int k = 0; k < L; ++k) {
+      s.logterm[a][k] = v[O_LOGTERM + a * L + k];
+      s.logval[a][k] = v[O_LOGVAL + a * L + k];
+    }
+#pragma unroll
+    for (int b = 0; b < N; ++b) {
+      s.next[a][b] = v[O_NEXT + a * N + b];
+      s.match[a][b] = v[O_MATCH + a * N + b];
+    }
+  }
+#pragma unroll
+  for (int k = 0; k < S; ++k) {
+    s.mhi[k] = v[O_MHI + k];
+    s.mlo[k] = v[O_MLO + k];
+    s.mcnt[k] = v[O_MCNT + k];
+  }
+}
+
+// Writes word `w` of the packed successor and folds it into the key.
+struct Emitter {
+  int* out;
+  const uint32_t* c1;
+  const uint32_t* c2;
+  RtFp acc;
+  __device__ __forceinline__ void put(int w, int x) {
+    out[w] = x;
+    rt_fp_mac(acc, x, c1[w], c2[w]);
+  }
+};
+
+__device__ __forceinline__ void pack(const St& s, Emitter& e) {
+#pragma unroll
+  for (int a = 0; a < N; ++a) {
+    e.put(O_ROLE + a, s.role[a]);
+    e.put(O_TERM + a, s.term[a]);
+    e.put(O_VOTED + a, s.voted[a]);
+    e.put(O_COMMIT + a, s.commit[a]);
+    e.put(O_LOGLEN + a, s.loglen[a]);
+    e.put(O_VRESP + a, s.vresp[a]);
+    e.put(O_VGRANT + a, s.vgrant[a]);
+#pragma unroll
+    for (int k = 0; k < L; ++k) {
+      e.put(O_LOGTERM + a * L + k, s.logterm[a][k]);
+      e.put(O_LOGVAL + a * L + k, s.logval[a][k]);
+    }
+#pragma unroll
+    for (int b = 0; b < N; ++b) {
+      e.put(O_NEXT + a * N + b, s.next[a][b]);
+      e.put(O_MATCH + a * N + b, s.match[a][b]);
+    }
+  }
+#pragma unroll
+  for (int k = 0; k < S; ++k) {
+    e.put(O_MHI + k, s.mhi[k]);
+    e.put(O_MLO + k, s.mlo[k]);
+    e.put(O_MCNT + k, s.mcnt[k]);
+  }
+}
+
+__global__ void __launch_bounds__(kThreads)
+    step_kernel(const int* __restrict__ vecs, int B, int R,
+                const int* __restrict__ table, int A,
+                const uint32_t* __restrict__ c1g,
+                const uint32_t* __restrict__ c2g, InvList inv, Limits lim,
+                int* __restrict__ svecs, uint8_t* __restrict__ valid_out,
+                uint8_t* __restrict__ ovf_out, int* __restrict__ fp_hi,
+                int* __restrict__ fp_lo, uint8_t* __restrict__ inv_out,
+                uint8_t* __restrict__ con_out) {
+  extern __shared__ int sm[];  // R rows of W words, then c1[W], c2[W]
+  uint32_t* c1 = reinterpret_cast<uint32_t*>(sm + R * W);
+  uint32_t* c2 = c1 + W;
+  const long long row0 = static_cast<long long>(blockIdx.x) * R;
+  const int nrows = B - row0 < R ? static_cast<int>(B - row0) : R;
+  for (int t = threadIdx.x; t < nrows * W; t += blockDim.x)
+    sm[t] = vecs[row0 * W + t];
+  for (int t = threadIdx.x; t < W; t += blockDim.x) {
+    c1[t] = c1g[t];
+    c2[t] = c2g[t];
+  }
+  __syncthreads();
+  const int r = threadIdx.x / A, a = threadIdx.x - r * A;
+  if (r >= nrows) return;
+  const long long lane = (row0 + r) * A + a;
+  const int* act = table + a * 5;
+
+  St s;
+  unpack(sm + r * W, s);
+  bool ovf;
+  const bool valid = apply(s, act[0], act[1], act[2], act[3], act[4], &ovf);
+  valid_out[lane] = valid;
+  ovf_out[lane] = ovf;
+  int* out = svecs + lane * W;
+  if (!valid) {  // never read by the engine: written as zeros
+    for (int w = 0; w < W; ++w) out[w] = 0;
+    fp_hi[lane] = 0;
+    fp_lo[lane] = 0;
+    for (int k = 0; k < inv.n; ++k) inv_out[lane * inv.n + k] = 0;
+    con_out[lane] = 0;
+    return;
+  }
+  canonicalize(s);
+  Emitter e{out, c1, c2, RtFp{}};
+  pack(s, e);
+  rt_fp_finish(e.acc, fp_hi + lane, fp_lo + lane);
+  for (int k = 0; k < inv.n; ++k)
+    inv_out[lane * inv.n + k] = invariant(s, inv.code[k]);
+  con_out[lane] = constraint_ok(s, lim);
+}
+
+}  // namespace
+
+extern "C" int rt_step_width() { return W; }
+
+extern "C" int rt_step_launch(const int* vecs, int B, const int* table, int A,
+                              const uint32_t* c1, const uint32_t* c2,
+                              const int* inv_codes, int n_inv, int max_term,
+                              int max_log, int max_msgs, int max_dup,
+                              int* svecs, uint8_t* valid, uint8_t* ovf,
+                              int* fp_hi, int* fp_lo, uint8_t* inv_ok,
+                              uint8_t* con_ok, void* stream) {
+  if (n_inv < 0 || n_inv > kMaxInv || A < 1 || A > kThreads)
+    return static_cast<int>(cudaErrorInvalidValue);
+  if (B <= 0) return 0;
+  InvList inv{};
+  inv.n = n_inv;
+  for (int k = 0; k < n_inv; ++k) inv.code[k] = inv_codes[k];
+  const Limits lim{max_term, max_log, max_msgs, max_dup};
+  const int R = kThreads / A;
+  const unsigned blocks = static_cast<unsigned>((B + R - 1) / R);
+  const size_t smem = static_cast<size_t>(R * W + 2 * W) * 4;
+  const cudaError_t err = cudaFuncSetAttribute(
+      step_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      static_cast<int>(smem));
+  if (err != cudaSuccess) return static_cast<int>(err);
+  step_kernel<<<blocks, R * A, smem, static_cast<cudaStream_t>(stream)>>>(
+      vecs, B, R, table, A, c1, c2, inv, lim, svecs, valid, ovf, fp_hi, fp_lo,
+      inv_ok, con_ok);
+  return static_cast<int>(cudaGetLastError());
+}

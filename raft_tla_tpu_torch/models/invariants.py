@@ -1,0 +1,142 @@
+"""Invariant registry — the port of ``raft_tla_tpu/models/invariants.py``.
+
+``NoTwoLeaders`` (the reference cfg's otherwise undefined operator) is Raft's
+Election Safety: at most one leader per term.  ``NaiveNoTwoLeaders`` ("never
+two leaders in any terms") is NOT an invariant of Raft — a deposed leader
+keeps ``state = Leader`` until it sees a higher term — and stays as the smoke
+test that violations and traces are found.
+
+Every invariant has two faces: a Python predicate over
+:class:`~raft_tla_tpu_torch.models.interp.PyState` and a torch predicate over
+a batch of tensor structs (one bool per state, leading dims kept).
+``csrc/step.cu`` evaluates the same predicates per lane, by the code of
+:data:`CODES`.  Registry names only; expression invariants and the history
+invariants of faithful mode are not ported (ROADMAP.md queue A).
+"""
+
+from __future__ import annotations
+
+import torch
+
+from raft_tla_tpu_torch.config import Bounds
+from raft_tla_tpu_torch.models import spec as S
+
+
+# -- Python (oracle) predicates: state -> bool (True = invariant holds) ------
+
+def _py_election_safety(s, bounds: Bounds) -> bool:
+    n = bounds.n_servers
+    return not any(
+        s.role[i] == S.LEADER and s.role[j] == S.LEADER
+        and s.term[i] == s.term[j]
+        for i in range(n) for j in range(i + 1, n))
+
+
+def _py_naive_no_two_leaders(s, bounds: Bounds) -> bool:
+    return sum(1 for r in s.role if r == S.LEADER) <= 1
+
+
+def _py_log_matching(s, bounds: Bounds) -> bool:
+    """If two logs share (index, term), they agree on the whole prefix."""
+    n = bounds.n_servers
+    for i in range(n):
+        for j in range(i + 1, n):
+            li, lj = s.log[i], s.log[j]
+            for k in range(min(len(li), len(lj))):
+                if li[k][0] == lj[k][0] and li[:k + 1] != lj[:k + 1]:
+                    return False
+    return True
+
+
+def _py_committed_within_log(s, bounds: Bounds) -> bool:
+    """commitIndex never points past the log."""
+    return all(s.commitIndex[i] <= len(s.log[i])
+               for i in range(bounds.n_servers))
+
+
+def _py_leader_completeness(s, bounds: Bounds) -> bool:
+    """Leader Completeness, state-level reading: for every j, every
+    k <= commitIndex[j] and every leader i with currentTerm[i] >
+    currentTerm[j], the identical entry sits at k in log[i] (the commit
+    term of j's entries is at most currentTerm[j])."""
+    n = bounds.n_servers
+    for j in range(n):
+        for k in range(s.commitIndex[j]):
+            ent = s.log[j][k]
+            for i in range(n):
+                if (s.role[i] == S.LEADER and s.term[i] > s.term[j]
+                        and (len(s.log[i]) <= k or s.log[i][k] != ent)):
+                    return False
+    return True
+
+
+# -- torch predicates: struct [..., fields] -> bool [...] -------------------
+
+def _t_election_safety(st):
+    is_l = st["role"] == S.LEADER
+    same_term = st["term"].unsqueeze(-1) == st["term"].unsqueeze(-2)
+    both = is_l.unsqueeze(-1) & is_l.unsqueeze(-2) & same_term
+    n = st["role"].shape[-1]
+    off_diag = ~torch.eye(n, dtype=torch.bool, device=st["role"].device)
+    return ~(both & off_diag).flatten(-2).any(-1)
+
+
+def _t_naive_no_two_leaders(st):
+    return (st["role"] == S.LEADER).sum(-1) <= 1
+
+
+def _t_log_matching(st):
+    lt, lv, ln = st["logTerm"], st["logVal"], st["logLen"]
+    ks = torch.arange(lt.shape[-1], device=lt.device)
+    # [..., i, j, k] masks
+    short = torch.minimum(ln.unsqueeze(-1), ln.unsqueeze(-2))
+    valid = ks < short.unsqueeze(-1)
+    term_eq = lt.unsqueeze(-2) == lt.unsqueeze(-3)
+    ent_eq = term_eq & (lv.unsqueeze(-2) == lv.unsqueeze(-3))
+    prefix_eq = torch.cumprod(ent_eq.to(torch.int32), dim=-1) > 0
+    bad = valid & term_eq & ~prefix_eq
+    return ~bad.flatten(-3).any(-1)
+
+
+def _t_committed_within_log(st):
+    return (st["commitIndex"] <= st["logLen"]).all(-1)
+
+
+def _t_leader_completeness(st):
+    lt, lv = st["logTerm"], st["logVal"]
+    ks = torch.arange(lt.shape[-1], device=lt.device)
+    committed = ks < st["commitIndex"].unsqueeze(-1)               # [j, k]
+    is_leader = st["role"] == S.LEADER                             # [i]
+    later = st["term"].unsqueeze(-1) > st["term"].unsqueeze(-2)    # [i, j]
+    must_hold = (is_leader.unsqueeze(-1) & later).unsqueeze(-1) \
+        & committed.unsqueeze(-3)                                  # [i, j, k]
+    present = ks < st["logLen"].unsqueeze(-1)                      # [i, k]
+    same = (lt.unsqueeze(-2) == lt.unsqueeze(-3)) \
+        & (lv.unsqueeze(-2) == lv.unsqueeze(-3))                   # [i, j, k]
+    ok = present.unsqueeze(-2) & same
+    return ~(must_hold & ~ok).flatten(-3).any(-1)
+
+
+# name -> (python predicate, torch predicate)
+REGISTRY = {
+    "NoTwoLeaders": (_py_election_safety, _t_election_safety),
+    "ElectionSafety": (_py_election_safety, _t_election_safety),
+    "NaiveNoTwoLeaders": (_py_naive_no_two_leaders, _t_naive_no_two_leaders),
+    "LogMatching": (_py_log_matching, _t_log_matching),
+    "CommittedWithinLog": (_py_committed_within_log, _t_committed_within_log),
+    "LeaderCompleteness": (_py_leader_completeness, _t_leader_completeness),
+}
+
+# name -> predicate code in csrc/step.cu (``enum Invariant``)
+CODES = {
+    "NoTwoLeaders": 0, "ElectionSafety": 0, "NaiveNoTwoLeaders": 1,
+    "LogMatching": 2, "CommittedWithinLog": 3, "LeaderCompleteness": 4,
+}
+
+
+def py_invariant(name: str):
+    return REGISTRY[name][0]
+
+
+def torch_invariant(name: str):
+    return REGISTRY[name][1]
