@@ -5,20 +5,28 @@
 Builds the port's two kernels from ``raft_tla_tpu_torch/csrc`` with nvcc,
 holds each against its plain PyTorch version on the card, drives the port's
 main path (``python -m raft_tla_tpu_torch.check``, the device engine) on
-verified configurations and at the reference universe's full size, and
-audits the finished store with the fingerprint kernel.  Imports nothing of
-JAX or of ``raft_tla_tpu``.
+verified configurations, at the reference universe's full size and on the
+flagship symmetric universe, and audits the finished stores with the
+fingerprint kernel.  Imports nothing of JAX or of ``raft_tla_tpu``.
 
 Phases (each prints a line; any failure exits non-zero):
 
-0. the card, torch and CUDA versions; the kernel builds, in parallel;
-1. K1 (csrc/step.cu) against the plain step on reachable rows, four configs;
+0. the card, torch and CUDA versions; the kernel builds, in parallel, with
+   the ptxas lines of the flagship and the 5- and 6-server layouts;
+1. K1 (csrc/step.cu) against the plain step on reachable rows: four configs
+   without symmetry, then the dedup-key stage at |G| = 6, 12, 24, 120 and
+   720 and with the deadvotes view;
 2. K2 (csrc/fingerprint.cu) against the plain fingerprint, 1,048,576 rows;
-3. verified counts through the CLI entry, a seeded violation (exit 12, trace
-   replays through the interpreter) and a deadlock (exit 11);
+3. verified counts through the CLI entry (plain, SYMMETRY and VIEW), the
+   seeded violations (exit 12, traces replay through the interpreter) and
+   a deadlock (exit 11);
 4. the reference universe (3 servers, 2 values, t2 l1 m1) to exhaustion:
    15,872,151 states, diameter 53, 40,060,419 transitions; then the store
-   audit with K2.
+   audit with K2;
+5. the flagship ``runs/MC3s2v.cfg`` (the same universe at MaxMsgs 2 with
+   SYMMETRY Server) to exhaustion through the CLI: 94,396,461 orbits,
+   diameter 57, 258,131,266 transitions and the per-level counts of
+   ``runs/flagship_r2_ddd.out``; then the store audit with K2.
 
 The line before the last is ``{"kernels": [...]}``; the last line is
 ``{"ok": true, "device": {...}}``.  Tolerance everywhere: bit-exact (all
@@ -49,6 +57,16 @@ REAL = dict(servers=3, values=2, max_term=2, max_log=1, max_msgs=1,
             invariants="NoTwoLeaders LogMatching CommittedWithinLog")
 REAL_EXPECT = (15_872_151, 53, 40_060_419)
 MAIN_CHUNK = 8192
+# The phase-4 wall on one H100 80GB HBM3 at 700 W before the dedup-key
+# stage existed (four runs of this script; PERF.md).
+REAL_WALL_BEFORE = (15.77, 18.19)
+
+# Phase 5: the flagship cfg and the counts of its complete check by the
+# JAX package's DDD engine (runs/flagship_r2_ddd.out, line 2).
+FLAGSHIP_CFG = ROOT / "runs" / "MC3s2v.cfg"
+FLAGSHIP_OUT = ROOT / "runs" / "flagship_r2_ddd.out"
+FLAGSHIP_ARGS = ["--max-term", "2", "--max-log", "1", "--max-msgs", "2",
+                 "--chunk", str(MAIN_CHUNK), "--cap", "100000000"]
 
 
 def fail(msg: str) -> None:
@@ -86,13 +104,15 @@ def step_bytes(B: int, A: int, W: int, n_inv: int) -> int:
     return B * W * 4 + B * A * (W * 4 + 8 + 3 + n_inv)
 
 
-def write_cfg(name: str, servers: int, values: int, invariants: str) -> str:
+def write_cfg(name: str, servers: int, values: int, invariants: str,
+              symmetry: str = "") -> str:
     WORK.mkdir(parents=True, exist_ok=True)
     srv = ", ".join(f"s{i + 1}" for i in range(servers))
     val = ", ".join(f"v{i + 1}" for i in range(values))
     path = WORK / f"{name}.cfg"
+    stanza = f"SYMMETRY {symmetry}\n" if symmetry else ""
     path.write_text(
-        f"SPECIFICATION Spec\nINVARIANT {invariants}\nCONSTANTS\n"
+        f"SPECIFICATION Spec\nINVARIANT {invariants}\n{stanza}CONSTANTS\n"
         f"    Server = {{{srv}}}\n    Value = {{{val}}}\n"
         '    Follower = "Follower"\n    Candidate = "Candidate"\n'
         '    Leader = "Leader"\n    Nil = "Nil"\n')
@@ -119,7 +139,8 @@ def phase0():
         f"python {sys.version.split()[0]}")
     layouts = {(3, 2, 2, 1, 2), (3, 2, 2, 1, 1), (3, 1, 2, 0, 1),
                (3, 1, 2, 1, 2), (2, 1, 2, 0, 2), (2, 2, 2, 1, 2),
-               (3, 1, 3, 0, 4), (1, 1, 2, 0, 2)}
+               (3, 1, 3, 0, 4), (1, 1, 2, 0, 2), (4, 1, 2, 0, 1),
+               (5, 2, 2, 0, 2), (6, 1, 2, 0, 1)}
     jobs = {(pallas_fp.SOURCE, ())}
     for lay in layouts:
         d = pallas_step.layout_defines(Bounds(*lay))
@@ -128,7 +149,8 @@ def phase0():
     build.prebuild(sorted(jobs))
     say(f"phase 0: built {len(jobs)} kernel libraries (nvcc sm_90a, in "
         f"parallel) in {time.monotonic() - t0:.1f} s")
-    for key in ((3, 2, 2, 1, 1), (3, 2, 2, 1, 2)):
+    for key in ((3, 2, 2, 1, 1), (3, 2, 2, 1, 2), (5, 2, 2, 0, 2),
+                (6, 1, 2, 0, 1)):
         d = pallas_step.layout_defines(Bounds(*key))
         say(f"ptxas step {d}: " + build.ptxas_report(
             pallas_step.SOURCE, d).replace("\n", " | "))
@@ -138,11 +160,14 @@ def phase0():
 
 
 def reachable_rows(config, n: int, init_override=None) -> torch.Tensor:
-    """The first ``n`` rows the port's engine discovers (a few levels)."""
+    """``n`` rows the port's engine discovers in its first 160 chunks (a
+    few levels), evenly spaced over them."""
     from raft_tla_tpu_torch.device_engine import Capacities, DeviceEngine
     eng = DeviceEngine(config, Capacities(n_states=1 << 20, levels=64))
     res = eng.check(init_override=init_override, max_chunks=160)
-    return eng.carry["store"][:min(n, res.n_states)].clone()
+    idx = torch.linspace(0, res.n_states - 1, min(n, res.n_states),
+                         device=eng.device).long()
+    return eng.carry["store"][idx].clone()
 
 
 def compare_step(out, ref) -> tuple:
@@ -162,55 +187,96 @@ def compare_step(out, ref) -> tuple:
     return bad, err
 
 
+def step_bound(out, n_inv: int, group: int) -> tuple:
+    """K1's bound for one launch: ``(ms, "bytes" or "operations", bytes)``.
+
+    Bytes: the rows read once and every output written once.  Operations:
+    the fingerprint arithmetic of the dedup key alone (two multiply-adds a
+    word per lane of the key, plus the finaliser), on every valid lane
+    for each of the ``group`` elements of its orbit scan: a lower bound, the
+    permutations and the sort network uncounted."""
+    B, A, W = out["svecs"].shape
+    nbytes = step_bytes(B, A, W, n_inv)
+    n_valid = int(out["valid"].sum())
+    t_bytes = nbytes / HBM_BYTES_PER_S
+    t_ops = n_valid * group * (4 * W + 12) / INT_OPS_PER_S
+    by = "bytes" if t_bytes >= t_ops else "operations"
+    return max(t_bytes, t_ops) * 1e3, by, nbytes
+
+
 def phase1(results):
     from raft_tla_tpu_torch.config import Bounds, CheckConfig
     from raft_tla_tpu_torch.models import interp, spec as SP
     from raft_tla_tpu_torch.ops import kernels, pallas_step
     from raft_tla_tpu_torch.ops import state as st
+    from raft_tla_tpu_torch.ops import symmetry as sym
     rep = Bounds(3, 1, 2, 1, 2)
     leader = interp.init_state(rep)._replace(
         role=(SP.LEADER, SP.FOLLOWER, SP.FOLLOWER), term=(2, 2, 2),
         votedFor=(1, 1, 1))
+    full5 = ("NoTwoLeaders", "LogMatching", "CommittedWithinLog",
+             "LeaderCompleteness", "NaiveNoTwoLeaders")
+    flag = Bounds(3, 2, 2, 1, 2)
+    # (name, bounds, spec, invariants, start, symmetry, view, rows)
     cases = [
-        ("full 3s/2v t2 l1 m2", Bounds(3, 2, 2, 1, 2), "full",
-         ("NoTwoLeaders", "LogMatching", "CommittedWithinLog",
-          "LeaderCompleteness", "NaiveNoTwoLeaders"), None),
+        ("full 3s/2v t2 l1 m2", flag, "full", full5, None, (), None,
+         MAIN_CHUNK),
         ("full 3s/2v t2 l1 m1", Bounds(3, 2, 2, 1, 1), "full",
-         ("NoTwoLeaders", "LogMatching", "CommittedWithinLog"), None),
+         ("NoTwoLeaders", "LogMatching", "CommittedWithinLog"), None, (),
+         None, MAIN_CHUNK),
         ("election 3s/1v t2 l0 m1", Bounds(3, 1, 2, 0, 1), "election",
-         ("NoTwoLeaders",), None),
+         ("NoTwoLeaders",), None, (), None, MAIN_CHUNK),
         ("replication 3s/1v t2 l1 m2", rep, "replication",
-         ("LogMatching", "CommittedWithinLog", "LeaderCompleteness"), leader),
+         ("LogMatching", "CommittedWithinLog", "LeaderCompleteness"), leader,
+         (), None, MAIN_CHUNK),
+        ("full 3s/2v t2 l1 m2, Server", flag, "full", full5, None,
+         ("Server",), None, MAIN_CHUNK),
+        ("full 3s/2v t2 l1 m2, Server x Value", flag, "full", full5, None,
+         ("Server", "Value"), None, MAIN_CHUNK),
+        ("full 3s/2v t2 l1 m2, Server, deadvotes", flag, "full", full5, None,
+         ("Server",), "deadvotes", MAIN_CHUNK),
+        ("election 4s/1v t2 l0 m1, Server", Bounds(4, 1, 2, 0, 1),
+         "election", ("NoTwoLeaders",), None, ("Server",), None, MAIN_CHUNK),
+        ("election 5s/2v t2 l0 m2, Server", Bounds(5, 2, 2, 0, 2),
+         "election", ("NoTwoLeaders",), None, ("Server",), None, 1024),
+        ("election 6s/1v t2 l0 m1, Server", Bounds(6, 1, 2, 0, 1),
+         "election", ("NoTwoLeaders",), None, ("Server",), None, 256),
     ]
     dev = torch.device("cuda")
-    for name, b, spec, invs, start in cases:
+    results["step_cases"] = []
+    for name, b, spec, invs, start, axes, view, n in cases:
         cfg = CheckConfig(bounds=b, spec=spec, invariants=invs, chunk=1024)
-        rows = reachable_rows(cfg, MAIN_CHUNK, start)
-        k1 = pallas_step.build_step(b, spec, invs, dev)
-        plain = kernels.build_step(b, spec, invs)
+        rows = reachable_rows(cfg, n, start)
+        k1 = pallas_step.build_step(b, spec, invs, dev, symmetry=axes,
+                                    view=view)
+        plain = kernels.build_step(b, spec, invs, axes, view)
         out, ref = k1(rows), plain(rows)
         torch.cuda.synchronize()
         bad, err = compare_step(out, ref)
         B, A, W = out["svecs"].shape
-        ms, spread = cuda_ms(lambda: k1(rows), 20)
-        plain_ms, _ = cuda_ms(lambda: plain(rows), 2, trials=3)
-        nbytes = step_bytes(B, A, W, len(invs))
-        # ops: the fingerprint's multiply-adds alone, a lower bound
-        t_bytes = nbytes / HBM_BYTES_PER_S
-        t_ops = B * A * (4 * W + 12) / INT_OPS_PER_S
-        bound = max(t_bytes, t_ops) * 1e3
-        say(f"phase 1: K1 {name}: rows {B} lanes {B * A} (A={A}, W={W}) "
-            f"valid {int(ref['valid'].sum())} mismatches {bad} "
-            f"max_abs_err {err}; K1 {ms:.4f} ms (spread {spread:.4f}), plain "
-            f"{plain_ms:.2f} ms "
-            f"per chunk; bound {bound:.4f} ms ({nbytes} bytes)")
+        P, Q = sym.group_sizes(b, axes)
+        reps = 20 if P * Q <= 24 else 3
+        ms, spread = cuda_ms(lambda: k1(rows), reps)
+        plain_ms, _ = cuda_ms(lambda: plain(rows), 1 if P * Q > 24 else 2,
+                              trials=1 if P * Q > 24 else 3)
+        bound, by, nbytes = step_bound(out, len(invs), P * Q)
+        say(f"phase 1: K1 {name}: |G| {P * Q}, rows {B} lanes {B * A} "
+            f"(A={A}, W={W}) valid {int(ref['valid'].sum())} mismatches "
+            f"{bad} max_abs_err {err}; K1 {ms:.4f} ms (spread {spread:.4f}), "
+            f"plain {plain_ms:.2f} ms per launch; bound {bound:.4f} ms "
+            f"({by}; {nbytes} bytes)")
         if bad:
             fail(f"K1 disagrees with the plain step on {name}")
-        if st.Layout.of(b).width == 57:       # the phase-4 layout
+        results["step_cases"].append(dict(
+            name=name, group=P * Q, rows=B, ms=ms, spread=spread,
+            plain_ms=plain_ms, bound_ms=bound, bound_by=by))
+        if name == "full 3s/2v t2 l1 m2, Server":   # the phase-5 layout
             results["step"] = dict(
                 mismatches=bad, max_abs_err=err, ms=ms, plain_ms=plain_ms,
-                bound_ms=bound,
-                bound_by="bytes" if t_bytes >= t_ops else "operations")
+                bound_ms=bound, bound_by=by)
+        else:
+            results.setdefault("step_err", 0)
+            results["step_err"] = max(results["step_err"], err)
 
 
 def phase2(results):
@@ -243,38 +309,23 @@ def phase2(results):
         bound_ms=bound, bound_by="bytes" if t_bytes >= t_ops else "operations")
 
 
-def phase3():
-    from raft_tla_tpu_torch.config import Bounds, CheckConfig
+def seeded_violation(symmetry: tuple) -> None:
+    """The seeded NaiveNoTwoLeaders violation (a crafted start state, the
+    case of the JAX package's tests/test_symmetry.py:117 under SYMMETRY):
+    exit 12, and the trace replays through the interpreter."""
     from raft_tla_tpu_torch import check
+    from raft_tla_tpu_torch.config import Bounds, CheckConfig
     from raft_tla_tpu_torch.device_engine import Capacities, DeviceEngine
     from raft_tla_tpu_torch.models import interp, spec as SP
     from raft_tla_tpu_torch.ops import msgbits as mb
-    verified = [
-        ("election 2s/1v t2 l0 m2", 2, 1, "election", (2, 0, 2), 3014, 17),
-        ("election-3s 3s/1v t2 l0 m1", 3, 1, "election", (2, 0, 1),
-         142538, 31),
-        ("full 2s/2v t2 l1 m2", 2, 2, "full", (2, 1, 2), 74897, 32),
-    ]
-    for name, n, v, spec, (mt, ml, mm), want_n, want_d in verified:
-        cfg = write_cfg(f"v{n}{v}{spec}", n, v, "NoTwoLeaders")
-        t0 = time.monotonic()
-        code, _eng, res, out = run_cli([
-            cfg, "--spec", spec, "--max-term", str(mt), "--max-log", str(ml),
-            "--max-msgs", str(mm), "--chunk", "4096", "--cap", str(1 << 18)])
-        wall = time.monotonic() - t0
-        got = (res.n_states, res.diameter) if res else None
-        say(f"phase 3: {name}: exit {code}, states/diameter {got} "
-            f"(verified {want_n}/{want_d}), {wall:.2f} s")
-        if code != 0 or got != (want_n, want_d):
-            fail(f"{name}: {out[-400:]}")
-    # The seeded NaiveNoTwoLeaders violation (a crafted start state).
     b = Bounds(n_servers=3, n_values=1, max_term=3, max_log=0, max_msgs=4)
     start = interp.init_state(b)._replace(
         role=(SP.LEADER, SP.FOLLOWER, SP.CANDIDATE), term=(2, 3, 3),
         votedFor=(1, 3, 0), vGrant=(0b011, 0, 0b100),
         msgs=(((mb.rv_response(3, 1, 1, 2)), 1),))
     cfgv = CheckConfig(bounds=b, spec="election",
-                       invariants=("NaiveNoTwoLeaders",), chunk=256)
+                       invariants=("NaiveNoTwoLeaders",), symmetry=symmetry,
+                       chunk=256)
     res = DeviceEngine(cfgv, Capacities(n_states=1 << 15, levels=64)
                        ).check(init_override=start)
     code = check.verdict_code(res)
@@ -282,10 +333,57 @@ def phase3():
     replays = bool(trace) and trace[0][1] == start and all(
         cur in [t for _i, t in interp.successors(prev, b, spec="election")]
         for (_l, prev), (_l2, cur) in zip(trace, trace[1:]))
-    say(f"phase 3: seeded NaiveNoTwoLeaders violation: exit {code}, trace "
-        f"length {len(trace)}, replays through interp.successors: {replays}")
+    say(f"phase 3: seeded NaiveNoTwoLeaders violation, symmetry "
+        f"{symmetry or '()'}: exit {code}, trace length {len(trace)}, "
+        f"replays through interp.successors: {replays}")
     if code != check.EXIT_VIOLATION or not replays:
-        fail("seeded violation")
+        fail(f"seeded violation, symmetry {symmetry}")
+
+
+def phase3():
+    from raft_tla_tpu_torch import check
+    # (name, servers, values, spec, (t, l, m), cfg SYMMETRY, extra flags,
+    #  verified count, verified diameter or None)
+    verified = [
+        ("election 2s/1v t2 l0 m2", 2, 1, "election", (2, 0, 2), "", [],
+         3014, 17),
+        ("election-3s 3s/1v t2 l0 m1", 3, 1, "election", (2, 0, 1), "", [],
+         142538, 31),
+        ("full 2s/2v t2 l1 m2", 2, 2, "full", (2, 1, 2), "", [], 74897, 32),
+        ("election 2s/1v t2 l0 m2, SYMMETRY Server", 2, 1, "election",
+         (2, 0, 2), "Server", [], 1514, 17),
+        ("election 3s/1v t2 l0 m1, SYMMETRY Server", 3, 1, "election",
+         (2, 0, 1), "Server", [], 23902, 31),
+        ("election 3s/1v t2 l0 m1, --view deadvotes", 3, 1, "election",
+         (2, 0, 1), "", ["--view", "deadvotes"], 129134, None),
+        ("full 2s/2v t2 l1 m2, --symmetry", 2, 2, "full", (2, 1, 2), "",
+         ["--symmetry"], 37472, 32),
+        ("full 2s/2v t2 l1 m2, SYMMETRY SymValue", 2, 2, "full", (2, 1, 2),
+         "SymValue", [], 50515, 32),
+        ("full 2s/2v t2 l1 m2, SYMMETRY SymServerValue", 2, 2, "full",
+         (2, 1, 2), "SymServerValue", [], 25281, 32),
+        ("election 4s/1v t2 l0 m1, SYMMETRY Server", 4, 1, "election",
+         (2, 0, 1), "Server", [], 5607847, None),
+    ]
+    for (name, n, v, spec, (mt, ml, mm), stanza, extra, want_n,
+         want_d) in verified:
+        cfg = write_cfg(f"v{n}{v}{spec}{stanza}", n, v, "NoTwoLeaders",
+                        stanza)
+        big = want_n > 1_000_000
+        t0 = time.monotonic()
+        code, _eng, res, out = run_cli([
+            cfg, "--spec", spec, "--max-term", str(mt), "--max-log", str(ml),
+            "--max-msgs", str(mm), "--chunk", str(MAIN_CHUNK if big else 4096),
+            "--cap", str(1 << 23 if big else 1 << 18), *extra])
+        wall = time.monotonic() - t0
+        got = (res.n_states, res.diameter) if res else None
+        say(f"phase 3: {name}: exit {code}, states/diameter {got} "
+            f"(verified {want_n}/{want_d if want_d else '-'}), {wall:.2f} s")
+        if code != 0 or got is None or got[0] != want_n \
+                or (want_d is not None and got[1] != want_d):
+            fail(f"{name}: {out[-400:]}")
+    seeded_violation(())
+    seeded_violation(("Server",))
     cfg = write_cfg("deadlock1s", 1, 1, "NoTwoLeaders")
     code, _e, res, out = run_cli([cfg, "--spec", "election", "--deadlock",
                                   "--max-term", "2", "--max-log", "0",
@@ -295,44 +393,11 @@ def phase3():
         fail(f"deadlock: {out[-400:]}")
 
 
-def phase4(results):
+def audit_store(eng, n_states: int, label: str) -> None:
+    """The stored rows' raw keys by K2 equal the plain version's, are
+    pairwise distinct, and are as many as the states counted."""
     from raft_tla_tpu_torch.ops import fingerprint as fpr, pallas_fp
-    from raft_tla_tpu_torch.ops import pallas_step
-    cfg = write_cfg("real", REAL["servers"], REAL["values"],
-                    REAL["invariants"])
-    argv = [cfg, "--spec", "full", "--max-term", str(REAL["max_term"]),
-            "--max-log", str(REAL["max_log"]), "--max-msgs",
-            str(REAL["max_msgs"]), "--chunk", str(MAIN_CHUNK),
-            "--cap", str(1 << 25), "--levels", "128"]
-    pallas_step.launches = 0
-    pallas_fp.launches = 0
-    torch.cuda.synchronize()
-    t0 = time.monotonic()
-    code, eng, res, out = run_cli(argv)
-    torch.cuda.synchronize()
-    wall = time.monotonic() - t0
-    launches = {"step": pallas_step.launches,
-                "fingerprint": pallas_fp.launches}
-    if res is None:
-        fail(f"real-size run: {out[-600:]}")
-    st = eng.stats
-    got = (res.n_states, res.diameter, res.n_transitions)
-    chunks = st["chunks"]
-    say(f"phase 4: real size full 3s/2v t2 l1 m1: exit {code}; states "
-        f"{got[0]}, diameter {got[1]}, transitions {got[2]} (expected "
-        f"{REAL_EXPECT}); wall {wall:.2f} s, {res.n_states / wall:,.0f} "
-        f"states/s; chunks {chunks}, K1 launches {launches['step']}, K2 "
-        f"launches {launches['fingerprint']}; dedup "
-        f"{1e3 * st['dedup_s'] / chunks:.3f} ms/chunk; host syncs "
-        f"{st['syncs'] / chunks:.2f}/chunk; peak device memory "
-        f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
-    if code != 0 or got != REAL_EXPECT:
-        fail("real-size counts differ from the reference")
-    if min(launches.values()) < 1:
-        fail(f"a kernel of the main path never launched: {launches}")
-    # Audit: the stored rows' keys by K2 equal the plain version's and are
-    # pairwise distinct.
-    store = eng.carry["store"][:res.n_states]
+    store = eng.carry["store"][:n_states]
     consts = fpr.torch_constants(store.shape[1], store.device)
     keys, bad = [], 0
     for s in range(0, store.shape[0], 1 << 21):
@@ -343,18 +408,103 @@ def phase4(results):
         keys.append(hi.to(torch.int64) * (1 << 32)
                     + (lo.to(torch.int64) & 0xFFFFFFFF))
     k = torch.sort(torch.cat(keys)).values
+    del keys
     dup = int((k[1:] == k[:-1]).sum())
-    say(f"phase 4: store audit with K2: {res.n_states} rows, mismatches "
-        f"{bad}, duplicate keys {dup}")
-    if bad or dup:
-        fail("store audit")
-    results["step"]["launches"] = launches["step"]
-    results["fingerprint"]["launches"] = launches["fingerprint"]
+    say(f"{label}: store audit with K2: {k.numel()} rows, mismatches {bad}, "
+        f"duplicate keys {dup}")
+    if bad or dup or k.numel() != n_states:
+        fail(f"{label}: store audit")
+
+
+def drive(argv, label: str) -> tuple:
+    """One run of the main path through the CLI, the launch counts set to
+    0 just before it and read just after: ``(code, eng, res, out, wall,
+    launches)``."""
+    from raft_tla_tpu_torch.ops import pallas_fp, pallas_step
+    from raft_tla_tpu_torch.ops import symmetry as sym
+    pallas_step.launches = 0
+    pallas_fp.launches = 0
+    sym.plain_calls = 0
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.monotonic()
+    code, eng, res, out = run_cli(argv)
+    torch.cuda.synchronize()
+    wall = time.monotonic() - t0
+    launches = {"step": pallas_step.launches,
+                "fingerprint": pallas_fp.launches,
+                "plain orbit key": sym.plain_calls}
+    if res is None:
+        fail(f"{label}: {out[-600:]}")
+    return code, eng, res, out, wall, launches
+
+
+def report_run(label: str, eng, res, wall: float, launches: dict) -> None:
+    st = eng.stats
+    chunks = st["chunks"]
+    say(f"{label}: wall {wall:.2f} s, {res.n_states / wall:,.0f} states/s; "
+        f"chunks {chunks}, K1 launches {launches['step']}, K2 launches "
+        f"{launches['fingerprint']}, plain orbit-key calls "
+        f"{launches['plain orbit key']}; dedup "
+        f"{1e3 * st['dedup_s'] / chunks:.3f} ms/chunk; host syncs "
+        f"{st['syncs'] / chunks:.2f}/chunk; peak device memory "
+        f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+
+
+def phase4(results):
+    cfg = write_cfg("real", REAL["servers"], REAL["values"],
+                    REAL["invariants"])
+    argv = [cfg, "--spec", "full", "--max-term", str(REAL["max_term"]),
+            "--max-log", str(REAL["max_log"]), "--max-msgs",
+            str(REAL["max_msgs"]), "--chunk", str(MAIN_CHUNK),
+            "--cap", str(1 << 25), "--levels", "128"]
+    code, eng, res, out, wall, launches = drive(argv, "real-size run")
+    got = (res.n_states, res.diameter, res.n_transitions)
+    say(f"phase 4: real size full 3s/2v t2 l1 m1: exit {code}; states "
+        f"{got[0]}, diameter {got[1]}, transitions {got[2]} (expected "
+        f"{REAL_EXPECT}); K1 runs its orbit loop at |G| = 1; wall before "
+        f"the dedup-key stage {REAL_WALL_BEFORE[0]}-{REAL_WALL_BEFORE[1]} s")
+    report_run("phase 4", eng, res, wall, launches)
+    if code != 0 or got != REAL_EXPECT:
+        fail("real-size counts differ from the reference")
+    if launches["step"] < 1 or launches["fingerprint"] < 1:
+        fail(f"a kernel of the main path never launched: {launches}")
+    audit_store(eng, res.n_states, "phase 4")
+    results["launches_phase4"] = launches
+
+
+def flagship_levels() -> list:
+    line = FLAGSHIP_OUT.read_text().splitlines()[1]
+    return json.loads(line)["levels"]
+
+
+def phase5(results):
+    want_levels = flagship_levels()
+    want = (94_396_461, 57, 258_131_266)
+    argv = [str(FLAGSHIP_CFG), *FLAGSHIP_ARGS]
+    code, eng, res, out, wall, launches = drive(argv, "flagship run")
+    got = (res.n_states, res.diameter, res.n_transitions)
+    say(f"phase 5: flagship {FLAGSHIP_CFG.name} {' '.join(FLAGSHIP_ARGS)}: "
+        f"exit {code}; orbits {got[0]}, diameter {got[1]}, transitions "
+        f"{got[2]} (expected {want}); levels equal to "
+        f"{FLAGSHIP_OUT.name}: {res.levels == want_levels}")
+    report_run("phase 5", eng, res, wall, launches)
+    if code != 0 or got != want or res.levels != want_levels:
+        fail("flagship counts differ from the reference")
+    if launches["step"] < 1 or launches["plain orbit key"] != 0:
+        fail(f"the flagship run did not key through K1: {launches}")
+    audit_store(eng, res.n_states, "phase 5")
+    results["launches_phase5"] = launches
+    results["flagship_wall"] = wall
 
 
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device visible to torch", file=sys.stderr)
+        return 2
+    if not FLAGSHIP_CFG.exists() or not FLAGSHIP_OUT.exists():
+        print("chip_smoke: run it from a checkout of the repository",
+              file=sys.stderr)
         return 2
     t_all = time.monotonic()
     card = phase0()
@@ -363,6 +513,14 @@ def main() -> int:
     phase2(results)
     phase3()
     phase4(results)
+    phase5(results)
+    results["step"]["max_abs_err"] = max(results["step"]["max_abs_err"],
+                                         results.get("step_err", 0))
+    # launches: the flagship's run (phase 5) for K1; for K2, which keys
+    # Init only on runs without symmetry, the phase-4 run.
+    results["step"]["launches"] = results["launches_phase5"]["step"]
+    results["fingerprint"]["launches"] = \
+        results["launches_phase4"]["fingerprint"]
     meta = {
         "step": ("cuda", "raft_tla_tpu_torch/csrc/step.cu",
                  "raft_tla_tpu/ops/pallas_step.py:131"),
@@ -374,7 +532,11 @@ def main() -> int:
         r = results[name]
         kernels.append({
             "name": name, "route": route, "source": src, "replaces": repl,
-            "launches": r["launches"], "mismatches": r["mismatches"],
+            "launches": r["launches"],
+            "launches_by_path": {
+                "phase4": results["launches_phase4"][name],
+                "phase5": results["launches_phase5"][name]},
+            "mismatches": r["mismatches"],
             "max_abs_err": r["max_abs_err"], "ms": r["ms"],
             "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
             "bound_by": r["bound_by"], "library_ms": None})

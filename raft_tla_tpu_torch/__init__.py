@@ -6,12 +6,14 @@ of ``raft_tla_tpu``: where it needs one of the reference's host modules it
 keeps its own copy, under the same module name, so each counterpart is easy
 to find.
 
-This slice is the reference's main path, ``python -m raft_tla_tpu.check``
-with the device engine, restricted to parity mode without SYMMETRY or VIEW:
-cfg -> :class:`CheckConfig` -> a BFS resident on the GPU -> verdict, trace
-and TLC exit code.  Two hand-written Hopper kernels carry it:
+The port covers the reference's main path, ``python -m raft_tla_tpu.check``
+with the device engine, in parity mode, with SYMMETRY (Server, Value) and
+the registered VIEWs: cfg -> :class:`CheckConfig` -> a BFS resident on the
+GPU -> verdict, trace and TLC exit code.  Two hand-written Hopper kernels
+carry it:
 
-- ``csrc/step.cu`` — the fused frontier step (``ops/pallas_step.py``);
+- ``csrc/step.cu`` — the fused frontier step with its dedup-key stage
+  (view, orbit-minimal fingerprint) (``ops/pallas_step.py``);
 - ``csrc/fingerprint.cu`` — the two-lane fingerprint (``ops/pallas_fp.py``).
 
 Each has a plain PyTorch version beside it; a wrapper runs the plain version

@@ -7,9 +7,10 @@ device engine runs the search on the card (``--device cuda``, the default)
 or on the CPU (``--device cpu``).  The result lines and exit codes are the
 reference's: 0 no error, 11 deadlock, 12 invariant violation, 1 error.
 
-This slice supports the device engine in parity mode without SYMMETRY or
-VIEW, with registry invariants.  The reference's other flags and stanzas
-are refused with the ROADMAP.md item that will bring them.
+This port supports the device engine in parity mode, with SYMMETRY on the
+Server and Value axes (``--symmetry`` or the cfg stanza), the registered
+VIEWs (``--view``) and registry invariants.  The reference's other flags
+and stanzas are refused with the ROADMAP.md item that will bring them.
 """
 
 from __future__ import annotations
@@ -26,8 +27,6 @@ EXIT_ERROR = 1
 # Reference flags that this slice refuses, with the ROADMAP.md queue item.
 _NOT_PORTED = {
     "--faithful": "faithful mode",
-    "--symmetry": "symmetry",
-    "--view": "VIEW",
     "--property": "liveness",
     "--simulate": "simulation and fleets",
     "--emit-tlc": "TLC export",
@@ -71,6 +70,16 @@ def build_argparser() -> argparse.ArgumentParser:
                    help="print per-action-family new-state counts")
     p.add_argument("--no-trace", action="store_true",
                    help="print only the verdict line of a violation")
+    p.add_argument("--symmetry", action="store_true",
+                   help="quotient the state space by Server permutation "
+                        "symmetry (TLC SYMMETRY analog; also enabled by a "
+                        "cfg SYMMETRY stanza)")
+    from raft_tla_tpu_torch.models.views import REGISTRY as view_registry
+    p.add_argument("--view", default=None,
+                   choices=tuple(sorted(view_registry)),
+                   help="TLC VIEW analog: fold a registered exact view into "
+                        "every dedup key (deadvotes: zero votesResponded/"
+                        "votesGranted of non-Candidates)")
     p.add_argument("--device", default="cuda", choices=("cuda", "cpu"),
                    help="where the search runs (default: cuda)")
     for flag in _NOT_PORTED:
@@ -82,9 +91,11 @@ def build_argparser() -> argparse.ArgumentParser:
 def resolve_check_config(cfg, spec: str = "full", max_term: int = 3,
                          max_log: int = 2, max_msgs: int = 4,
                          max_dup: int = 1, chunk: int = 1024,
-                         deadlock: bool = False, path: str | None = None):
+                         deadlock: bool = False, symmetry: bool = False,
+                         view: str | None = None, path: str | None = None):
     """cfg -> ``CheckConfig``: the Raft branch of the reference's
-    ``serve/jobs.resolve_check_config``, cut to this slice.  Raises
+    ``serve/jobs.resolve_check_config`` in parity mode.  ``symmetry`` is
+    the ``--symmetry`` flag (Server), ``view`` the ``--view`` flag.  Raises
     ValueError on a bad cfg and NotImplementedError on a stanza that is
     not ported."""
     from raft_tla_tpu_torch.config import (
@@ -108,21 +119,32 @@ def resolve_check_config(cfg, spec: str = "full", max_term: int = 3,
                            cfg=cfg, path=path)
     if cfg.properties:
         raise not_ported(f"PROPERTY {cfg.properties}", "liveness")
-    if cfg.symmetry:
-        raise not_ported(f"SYMMETRY {cfg.symmetry}", "symmetry")
+    sym_names = set(cfg.symmetry) | ({"Server"} if symmetry else set())
+    bad_sym = sym_names - {"Server", "SymServer", "Value", "SymValue",
+                           "SymServerValue"}
+    if bad_sym:
+        raise ValueError(
+            f"SYMMETRY {sorted(bad_sym)} not supported: Server and/or "
+            "Value permutation symmetry (name them Server/SymServer, "
+            "Value/SymValue, or the combined SymServerValue)")
+    axes = tuple(ax for ax in ("Server", "Value")
+                 if {ax, f"Sym{ax}"} & sym_names
+                 or "SymServerValue" in sym_names)
     if [c for c in cfg.constraints if c != "StateConstraint"]:
         raise ValueError(
             f"CONSTRAINT {cfg.constraints} not supported: the state "
             "constraint is the built-in bound, set via --max-* flags")
     if cfg.view not in (None, "ParityView"):
-        raise not_ported(f"VIEW {cfg.view}", "VIEW")
+        raise ValueError(
+            f"VIEW {cfg.view} not supported: parity mode fingerprints "
+            "under the built-in history-free ParityView")
     bounds = Bounds(n_servers=len(cfg.server_names()),
                     n_values=len(cfg.value_names()),
                     max_term=max_term, max_log=max_log,
                     max_msgs=max_msgs, max_dup=max_dup)
     return CheckConfig(bounds=bounds, spec=spec,
-                       invariants=tuple(cfg.invariants), chunk=chunk,
-                       check_deadlock=deadlock)
+                       invariants=tuple(cfg.invariants), symmetry=axes,
+                       chunk=chunk, check_deadlock=deadlock, view=view)
 
 
 def verdict_code(result) -> int:
@@ -157,7 +179,7 @@ def run(argv=None) -> tuple:
             load_cfg(args.cfg), spec=args.spec, max_term=args.max_term,
             max_log=args.max_log, max_msgs=args.max_msgs,
             max_dup=args.max_dup, chunk=args.chunk, deadlock=args.deadlock,
-            path=args.cfg)
+            symmetry=args.symmetry, view=args.view, path=args.cfg)
     except (OSError, ValueError, NotImplementedError) as e:
         print(f"Error: {e}", file=sys.stderr)
         return EXIT_ERROR, None, None
@@ -170,6 +192,11 @@ def run(argv=None) -> tuple:
     print(f"Constraint: MaxTerm={b.max_term} MaxLogLen={b.max_log} "
           f"MaxMsgs={b.max_msgs} MaxDup={b.max_dup}")
     print(f"Invariants: {', '.join(config.invariants) or '(none)'}")
+    if config.symmetry:
+        print(f"Symmetry: {' x '.join(config.symmetry)} permutations "
+              "(counting orbits)")
+    if config.view:
+        print(f"View: {config.view} (counting view-quotient states)")
 
     t0 = time.monotonic()
     eng = None

@@ -11,9 +11,10 @@ Field names, defaults and class names are kept equal to the reference's, so
 ``utils/ckpt.config_digest`` gives the same digest for the same config and a
 checkpoint moves between the two packages.
 
-Scope of this slice: parity mode only, no SYMMETRY, no VIEW, registry
-invariants only.  Everything else raises :class:`NotImplementedError` naming
-the ROADMAP.md queue item that will bring it; nothing runs something else.
+Scope: parity mode only, SYMMETRY on the Server and Value axes, the
+registered VIEWs (models/views.py), registry invariants only.  Everything
+else raises :class:`NotImplementedError` naming the ROADMAP.md queue item
+that will bring it; nothing runs something else.
 """
 
 from __future__ import annotations
@@ -90,10 +91,12 @@ class CheckConfig:
     bounds: Bounds = dataclasses.field(default_factory=Bounds)
     spec: str = "full"                     # full | election | replication
     invariants: tuple = ("NoTwoLeaders",)  # registry names
-    symmetry: tuple = ()                   # TLC SYMMETRY: not ported
+    symmetry: tuple = ()                   # TLC SYMMETRY: axes of
+    #   ("Server", "Value"); the dedup key is the orbit-minimal fingerprint
     chunk: int = 1024                      # frontier states expanded per step
     check_deadlock: bool = False           # TLC -deadlock analog
-    view: str | None = None                # TLC VIEW: not ported
+    view: str | None = None                # TLC VIEW analog: a registered
+    #   exact view (models/views.py) folded into every dedup key
 
     def __post_init__(self) -> None:
         from raft_tla_tpu_torch.models.invariants import REGISTRY
@@ -101,10 +104,23 @@ class CheckConfig:
         if self.spec not in SPECS:
             raise ValueError(f"unknown spec {self.spec!r} "
                              f"(known: {sorted(SPECS)})")
+        bad = [ax for ax in self.symmetry if ax not in ("Server", "Value")]
+        if bad:
+            raise ValueError(
+                f"SYMMETRY {bad} not supported: Server and/or Value "
+                "permutation symmetry")
         if self.symmetry:
-            raise not_ported(f"SYMMETRY {list(self.symmetry)}", "symmetry")
+            from raft_tla_tpu_torch.ops import symmetry as sym
+            if "Server" in self.symmetry:
+                sym.permutations(self.bounds)        # raises past the limit
+            if "Value" in self.symmetry:
+                sym.value_permutations(self.bounds)
         if self.view is not None:
-            raise not_ported(f"VIEW {self.view}", "VIEW")
+            from raft_tla_tpu_torch.models.views import REGISTRY as VIEWS
+            if self.view not in VIEWS:
+                raise ValueError(
+                    f"unknown view {self.view!r} "
+                    f"(known: {sorted(VIEWS)})")
         for nm in self.invariants:
             if nm not in REGISTRY:
                 raise not_ported(f"invariant {nm!r} (only the registry "

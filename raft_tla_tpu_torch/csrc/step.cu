@@ -2,28 +2,54 @@
 //
 // Replaces: raft_tla_tpu/ops/pallas_step.py `build_step_megakernel`
 // (:131; kernel body `kernel` at :175, launch `_call` at :184,
-// pl.pallas_call at :194), in its symmetry-free parity-mode form.  The TPU
-// kernel stages the XLA step's jaxpr over 128-row blocks so that the
-// [B, A, W] candidate block stays in VMEM between stages; this kernel
-// computes the same lanes as the plain torch step (ops/kernels.build_step):
-// unpack, the action family's guard and effect, canonicalize (message-slot
-// sort), pack, fingerprint, invariants, StateConstraint.
+// pl.pallas_call at :194), in its parity-mode form.  The TPU kernel stages
+// the XLA step's jaxpr over 128-row blocks so that the [B, A, W] candidate
+// block stays in VMEM between stages; this kernel computes the same lanes
+// as the plain torch step (ops/kernels.build_step): unpack, the action
+// family's guard and effect, canonicalize (message-slot sort), pack, the
+// dedup key (VIEW, then the orbit-minimal fingerprint under SYMMETRY),
+// invariants, StateConstraint.
 //
 // Design: one thread per (row, action lane).  A block holds R = 256 / A
 // rows; it copies their W words once into shared memory, and each of the A
-// threads of a row unpacks the row into a struct in registers, applies its
-// lane's family (read from a small per-lane table), and finishes the
-// candidate without it ever touching device memory between stages: every
-// output is written once.  The layout's sizes (N servers, L log capacity,
-// S message slots, hence W) are compile-time macros; build.py compiles one
-// library per layout.  The struct sits in the thread's local memory, which
-// stays in L1 (see `rd`/`wr` below for why not in registers).
+// threads of a row unpacks the row into a struct, applies its lane's
+// family (read from a small per-lane table), and finishes the candidate
+// without it ever touching device memory between stages: every output is
+// written once.  The layout's sizes (N servers, L log capacity, S message
+// slots, hence W) are compile-time macros; build.py compiles one library
+// per layout.  The struct sits in the thread's local memory, which stays
+// in L1 (see `rd`/`wr` below for why not in registers).
 //
-// What bounds it on the H100: bytes written.  Each lane writes its packed
-// successor (W int32) plus its masks and keys, so the output is about
-// A * (W + 5) * 4 bytes per input row of W * 4 bytes; the integer work per
-// lane is a few hundred operations, which the card's integer rate covers
-// many times over.  Lanes of a warp run different families and diverge;
+// The dedup key (ops/symmetry.build_orbit_fp, ops/kernels.build_step):
+// key = min over g in [0, P*Q) of fp(canonicalize(g(view(s)))), the min
+// lexicographic on the unsigned pair (hi, lo); P = n! with Server symmetry
+// (else 1), Q = V! with Value symmetry (else 1), g = 0 the identity, so at
+// P*Q = 1 without a view the key is the plain fingerprint of the packed
+// successor and one code path serves every case.  The permuted state is
+// never built: each permuted word is read from the struct at its source
+// index and folded into the fingerprint accumulators in place; only the S
+// message slots are remapped into registers and re-sorted.  The server
+// part of the fold is shared by the Q value permutations of one server
+// permutation.  The view (deadvotes: vote sets of non-candidates read as
+// 0) is applied as each vote word is read.
+//
+// Group tables: the kernel takes only the permutations themselves, P rows
+// of (p[n], inv[n]) and Q rows of q[V], int8 (ops/symmetry.kernel_tables),
+// and derives the reference's other tables in the thread: votedFor
+// relabel p[j] + 1, the vote-bitmask permutation (n bit moves), the
+// message src/dst relabel and the value relabel q[v - 1] + 1.  The
+// reference's stacked tables (inv_idx, vf_map, bit_lut, p_lut, vlut,
+// e_lut) take 720 x 93 ints = 268 KB at 6 servers, over the 227 KB of
+// shared memory a block may use; the permutations alone take P*2n + Q*V
+// bytes (8.7 KB at 6 servers), copied into shared memory by each block.
+// All lanes of a block walk g in step, so each table read is a broadcast.
+//
+// What bounds it on the H100: bytes written at |G| = 1 (each lane writes
+// its packed successor, W int32, plus its masks and keys: about
+// A * (W + 5) * 4 bytes per input row of W * 4 bytes); integer work at
+// large |G| (each lane spends |G| x (about 2W multiply-adds plus the
+// relabels and the S-slot sort network)), which passes the bytes at a few
+// dozen elements.  Lanes of a warp run different families and diverge;
 // that costs issue slots, not bytes.
 //
 // Contract (held against the plain step): `valid` equal on every lane;
@@ -65,6 +91,8 @@ enum Invariant {
 
 constexpr int kMaxInv = 8;
 constexpr int kThreads = 256;
+constexpr int kMaxValues = 15;   // the 4-bit message value field
+constexpr int kViewDeadvotes = 1;  // models/views.KERNEL_CODES
 
 struct InvList {
   int n;
@@ -416,16 +444,17 @@ __device__ __forceinline__ bool apply(St& s, int fam, int i, int j, int v,
 
 // Message slots into canonical order: occupied first, then (hi, lo); empty
 // slots all-zero.  Odd-even transposition network (ops/state._network_sort).
-__device__ __forceinline__ void canonicalize(St& s) {
+__device__ __forceinline__ void sort_bag(int (&hi)[S], int (&lo)[S],
+                                         int (&cnt)[S]) {
   int occ[S];
 #pragma unroll
   for (int k = 0; k < S; ++k) {
-    const bool o = s.mcnt[k] > 0;
+    const bool o = cnt[k] > 0;
     occ[k] = o ? 0 : 1;
     if (!o) {
-      s.mhi[k] = 0;
-      s.mlo[k] = 0;
-      s.mcnt[k] = 0;
+      hi[k] = 0;
+      lo[k] = 0;
+      cnt[k] = 0;
     }
   }
 #pragma unroll
@@ -433,16 +462,20 @@ __device__ __forceinline__ void canonicalize(St& s) {
 #pragma unroll
     for (int a = r % 2; a < S - 1; a += 2) {
       const int b = a + 1;
-      bool le = s.mlo[a] <= s.mlo[b];
-      le = s.mhi[a] < s.mhi[b] || (s.mhi[a] == s.mhi[b] && le);
+      bool le = lo[a] <= lo[b];
+      le = hi[a] < hi[b] || (hi[a] == hi[b] && le);
       le = occ[a] < occ[b] || (occ[a] == occ[b] && le);
       if (!le) {
         int t = occ[a]; occ[a] = occ[b]; occ[b] = t;
-        t = s.mhi[a]; s.mhi[a] = s.mhi[b]; s.mhi[b] = t;
-        t = s.mlo[a]; s.mlo[a] = s.mlo[b]; s.mlo[b] = t;
-        t = s.mcnt[a]; s.mcnt[a] = s.mcnt[b]; s.mcnt[b] = t;
+        t = hi[a]; hi[a] = hi[b]; hi[b] = t;
+        t = lo[a]; lo[a] = lo[b]; lo[b] = t;
+        t = cnt[a]; cnt[a] = cnt[b]; cnt[b] = t;
       }
     }
+}
+
+__device__ __forceinline__ void canonicalize(St& s) {
+  sort_bag(s.mhi, s.mlo, s.mcnt);
 }
 
 // -- invariants (models/invariants.py) and the StateConstraint --------------
@@ -555,59 +588,179 @@ __device__ __forceinline__ void unpack(const int* v, St& s) {
   }
 }
 
-// Writes word `w` of the packed successor and folds it into the key.
-struct Emitter {
-  int* out;
-  const uint32_t* c1;
-  const uint32_t* c2;
-  RtFp acc;
-  __device__ __forceinline__ void put(int w, int x) {
-    out[w] = x;
-    rt_fp_mac(acc, x, c1[w], c2[w]);
-  }
-};
-
-__device__ __forceinline__ void pack(const St& s, Emitter& e) {
+// Writes the packed successor (ops/state.STATE_FIELDS order).
+__device__ __forceinline__ void pack(const St& s, int* out) {
 #pragma unroll
   for (int a = 0; a < N; ++a) {
-    e.put(O_ROLE + a, s.role[a]);
-    e.put(O_TERM + a, s.term[a]);
-    e.put(O_VOTED + a, s.voted[a]);
-    e.put(O_COMMIT + a, s.commit[a]);
-    e.put(O_LOGLEN + a, s.loglen[a]);
-    e.put(O_VRESP + a, s.vresp[a]);
-    e.put(O_VGRANT + a, s.vgrant[a]);
+    out[O_ROLE + a] = s.role[a];
+    out[O_TERM + a] = s.term[a];
+    out[O_VOTED + a] = s.voted[a];
+    out[O_COMMIT + a] = s.commit[a];
+    out[O_LOGLEN + a] = s.loglen[a];
+    out[O_VRESP + a] = s.vresp[a];
+    out[O_VGRANT + a] = s.vgrant[a];
 #pragma unroll
     for (int k = 0; k < L; ++k) {
-      e.put(O_LOGTERM + a * L + k, s.logterm[a][k]);
-      e.put(O_LOGVAL + a * L + k, s.logval[a][k]);
+      out[O_LOGTERM + a * L + k] = s.logterm[a][k];
+      out[O_LOGVAL + a * L + k] = s.logval[a][k];
     }
 #pragma unroll
     for (int b = 0; b < N; ++b) {
-      e.put(O_NEXT + a * N + b, s.next[a][b]);
-      e.put(O_MATCH + a * N + b, s.match[a][b]);
+      out[O_NEXT + a * N + b] = s.next[a][b];
+      out[O_MATCH + a * N + b] = s.match[a][b];
     }
   }
 #pragma unroll
   for (int k = 0; k < S; ++k) {
-    e.put(O_MHI + k, s.mhi[k]);
-    e.put(O_MLO + k, s.mlo[k]);
-    e.put(O_MCNT + k, s.mcnt[k]);
+    out[O_MHI + k] = s.mhi[k];
+    out[O_MLO + k] = s.mlo[k];
+    out[O_MCNT + k] = s.mcnt[k];
   }
+}
+
+// -- the dedup key: VIEW and the orbit-minimal fingerprint ------------------
+//
+// ops/symmetry.py: a server permutation p (new index of old server j is
+// p[j]) reads row inv[k] into row k, relabels votedFor through p (0 = Nil
+// fixed), moves bit j of a vote mask to bit p[j], reorders both axes of
+// nextIndex/matchIndex and relabels src/dst of occupied message slots; a
+// value permutation q relabels logVal (0 fixed) and the entry-value field e
+// of occupied slots.  Out-of-range inputs are clamped as the reference's
+// table gathers clamp them.
+
+struct Group {
+  const int8_t* perm;  // P rows of (p[N], inv[N])
+  const int8_t* vals;  // Q rows of q[nv]
+  int P, Q, nv;        // nv = 0: no value permutation
+  int view;            // models/views.KERNEL_CODES
+};
+
+constexpr int kHiKeep = ~((15 << 21) | (15 << 25));  // msgbits src, dst
+constexpr int kLoKeepE = ~(15 << 7);                 // msgbits e
+
+__device__ __forceinline__ void mac(RtFp& acc, const uint32_t* c1,
+                                    const uint32_t* c2, int w, int x) {
+  rt_fp_mac(acc, x, c1[w], c2[w]);
+}
+
+// The value relabel q[v - 1] + 1 of vlut[clamp(v, 0, V)].
+__device__ __forceinline__ int relabel_value(const int8_t* q, int nv, int v) {
+  const int c = v < 0 ? 0 : (v > nv ? nv : v);
+  return c == 0 ? 0 : q[c - 1] + 1;
+}
+
+__device__ void orbit_key(const St& s, const Group& g, const uint32_t* c1,
+                          const uint32_t* c2, int* key_hi, int* key_lo) {
+  uint32_t bh = 0u, bl = 0u;
+  bool first = true;
+#pragma unroll 1
+  for (int pi = 0; pi < g.P; ++pi) {
+    const int8_t* row = g.perm + pi * 2 * N;
+    int p[N], inv[N];
+#pragma unroll
+    for (int k = 0; k < N; ++k) {
+      p[k] = row[k];
+      inv[k] = row[N + k];
+    }
+    // Everything but logVal and the messages: shared by the Q elements.
+    RtFp base{};
+#pragma unroll
+    for (int k = 0; k < N; ++k) {
+      const int src = inv[k];
+      const int role = s.role[src];
+      mac(base, c1, c2, O_ROLE + k, role);
+      mac(base, c1, c2, O_TERM + k, s.term[src]);
+      const int vf = clampi(s.voted[src], N + 1);
+      mac(base, c1, c2, O_VOTED + k, vf == 0 ? 0 : row[vf - 1] + 1);
+      mac(base, c1, c2, O_COMMIT + k, s.commit[src]);
+      mac(base, c1, c2, O_LOGLEN + k, s.loglen[src]);
+#pragma unroll
+      for (int l = 0; l < L; ++l)
+        mac(base, c1, c2, O_LOGTERM + k * L + l, s.logterm[src][l]);
+      const bool dead = g.view == kViewDeadvotes && role != CANDIDATE;
+      const int vr = dead ? 0 : s.vresp[src];
+      const int vg = dead ? 0 : s.vgrant[src];
+      int pr = 0, pg = 0;
+#pragma unroll
+      for (int j = 0; j < N; ++j) {
+        pr |= ((vr >> j) & 1) << p[j];
+        pg |= ((vg >> j) & 1) << p[j];
+      }
+      mac(base, c1, c2, O_VRESP + k, pr);
+      mac(base, c1, c2, O_VGRANT + k, pg);
+#pragma unroll
+      for (int m = 0; m < N; ++m) {
+        mac(base, c1, c2, O_NEXT + k * N + m, s.next[src][inv[m]]);
+        mac(base, c1, c2, O_MATCH + k * N + m, s.match[src][inv[m]]);
+      }
+    }
+    int phi[S];
+#pragma unroll
+    for (int k = 0; k < S; ++k) {
+      const int hi = s.mhi[k];
+      const int sx = (hi >> 21) & 15, dx = (hi >> 25) & 15;
+      const int ns = sx < N ? row[sx] : 0, nd = dx < N ? row[dx] : 0;
+      phi[k] = s.mcnt[k] > 0 ? (hi & kHiKeep) | shl(ns, 21) | shl(nd, 25)
+                             : hi;
+    }
+#pragma unroll 1
+    for (int qi = 0; qi < g.Q; ++qi) {
+      const int8_t* q = g.vals + qi * g.nv;
+      RtFp acc = base;
+#pragma unroll
+      for (int k = 0; k < N; ++k)
+#pragma unroll
+        for (int l = 0; l < L; ++l) {
+          const int v = s.logval[inv[k]][l];
+          mac(acc, c1, c2, O_LOGVAL + k * L + l,
+              g.nv ? relabel_value(q, g.nv, v) : v);
+        }
+      int mh[S], ml[S], mc[S];
+#pragma unroll
+      for (int k = 0; k < S; ++k) {
+        mh[k] = phi[k];
+        mc[k] = s.mcnt[k];
+        const int lo = s.mlo[k];
+        const int e = (lo >> 7) & 15;
+        const int ne = e >= 1 && e <= g.nv ? q[e - 1] + 1 : 0;
+        ml[k] = g.nv && mc[k] > 0 ? (lo & kLoKeepE) | shl(ne, 7) : lo;
+      }
+      sort_bag(mh, ml, mc);
+#pragma unroll
+      for (int k = 0; k < S; ++k) {
+        mac(acc, c1, c2, O_MHI + k, mh[k]);
+        mac(acc, c1, c2, O_MLO + k, ml[k]);
+        mac(acc, c1, c2, O_MCNT + k, mc[k]);
+      }
+      const uint32_t h = rt_fmix32(acc.s1 + RT_LANE_SEED_HI);
+      const uint32_t l = rt_fmix32(acc.s2 + RT_LANE_SEED_LO);
+      if (first || h < bh || (h == bh && l < bl)) {
+        bh = h;
+        bl = l;
+      }
+      first = false;
+    }
+  }
+  *key_hi = static_cast<int>(bh);
+  *key_lo = static_cast<int>(bl);
 }
 
 __global__ void __launch_bounds__(kThreads)
     step_kernel(const int* __restrict__ vecs, int B, int R,
                 const int* __restrict__ table, int A,
                 const uint32_t* __restrict__ c1g,
-                const uint32_t* __restrict__ c2g, InvList inv, Limits lim,
-                int* __restrict__ svecs, uint8_t* __restrict__ valid_out,
-                uint8_t* __restrict__ ovf_out, int* __restrict__ fp_hi,
-                int* __restrict__ fp_lo, uint8_t* __restrict__ inv_out,
-                uint8_t* __restrict__ con_out) {
-  extern __shared__ int sm[];  // R rows of W words, then c1[W], c2[W]
+                const uint32_t* __restrict__ c2g,
+                const int8_t* __restrict__ groupg, int P, int Q, int nv,
+                int view, InvList inv, Limits lim, int* __restrict__ svecs,
+                uint8_t* __restrict__ valid_out, uint8_t* __restrict__ ovf_out,
+                int* __restrict__ fp_hi, int* __restrict__ fp_lo,
+                uint8_t* __restrict__ inv_out, uint8_t* __restrict__ con_out) {
+  // R rows of W words, then c1[W], c2[W], then the group table's bytes.
+  extern __shared__ int sm[];
   uint32_t* c1 = reinterpret_cast<uint32_t*>(sm + R * W);
   uint32_t* c2 = c1 + W;
+  int8_t* group = reinterpret_cast<int8_t*>(c2 + W);
+  const int n_group = P * 2 * N + Q * nv;
   const long long row0 = static_cast<long long>(blockIdx.x) * R;
   const int nrows = B - row0 < R ? static_cast<int>(B - row0) : R;
   for (int t = threadIdx.x; t < nrows * W; t += blockDim.x)
@@ -616,6 +769,7 @@ __global__ void __launch_bounds__(kThreads)
     c1[t] = c1g[t];
     c2[t] = c2g[t];
   }
+  for (int t = threadIdx.x; t < n_group; t += blockDim.x) group[t] = groupg[t];
   __syncthreads();
   const int r = threadIdx.x / A, a = threadIdx.x - r * A;
   if (r >= nrows) return;
@@ -638,9 +792,9 @@ __global__ void __launch_bounds__(kThreads)
     return;
   }
   canonicalize(s);
-  Emitter e{out, c1, c2, RtFp{}};
-  pack(s, e);
-  rt_fp_finish(e.acc, fp_hi + lane, fp_lo + lane);
+  pack(s, out);
+  const Group g{group, group + P * 2 * N, P, Q, nv, view};
+  orbit_key(s, g, c1, c2, fp_hi + lane, fp_lo + lane);
   for (int k = 0; k < inv.n; ++k)
     inv_out[lane * inv.n + k] = invariant(s, inv.code[k]);
   con_out[lane] = constraint_ok(s, lim);
@@ -650,14 +804,19 @@ __global__ void __launch_bounds__(kThreads)
 
 extern "C" int rt_step_width() { return W; }
 
+// `group`: P rows of (p[N], inv[N]) then Q rows of q[nv], int8, on the
+// device (ops/symmetry.kernel_tables); nv = 0 when Value symmetry is off
+// (then Q = 1 and no value row is read).
 extern "C" int rt_step_launch(const int* vecs, int B, const int* table, int A,
                               const uint32_t* c1, const uint32_t* c2,
-                              const int* inv_codes, int n_inv, int max_term,
-                              int max_log, int max_msgs, int max_dup,
-                              int* svecs, uint8_t* valid, uint8_t* ovf,
-                              int* fp_hi, int* fp_lo, uint8_t* inv_ok,
-                              uint8_t* con_ok, void* stream) {
-  if (n_inv < 0 || n_inv > kMaxInv || A < 1 || A > kThreads)
+                              const int8_t* group, int P, int Q, int nv,
+                              int view, const int* inv_codes, int n_inv,
+                              int max_term, int max_log, int max_msgs,
+                              int max_dup, int* svecs, uint8_t* valid,
+                              uint8_t* ovf, int* fp_hi, int* fp_lo,
+                              uint8_t* inv_ok, uint8_t* con_ok, void* stream) {
+  if (n_inv < 0 || n_inv > kMaxInv || A < 1 || A > kThreads || P < 1 ||
+      Q < 1 || nv < 0 || nv > kMaxValues || (nv == 0 && Q != 1))
     return static_cast<int>(cudaErrorInvalidValue);
   if (B <= 0) return 0;
   InvList inv{};
@@ -666,13 +825,14 @@ extern "C" int rt_step_launch(const int* vecs, int B, const int* table, int A,
   const Limits lim{max_term, max_log, max_msgs, max_dup};
   const int R = kThreads / A;
   const unsigned blocks = static_cast<unsigned>((B + R - 1) / R);
-  const size_t smem = static_cast<size_t>(R * W + 2 * W) * 4;
+  const size_t smem = static_cast<size_t>(R * W + 2 * W) * 4 +
+                      static_cast<size_t>(P * 2 * N + Q * nv);
   const cudaError_t err = cudaFuncSetAttribute(
       step_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
       static_cast<int>(smem));
   if (err != cudaSuccess) return static_cast<int>(err);
   step_kernel<<<blocks, R * A, smem, static_cast<cudaStream_t>(stream)>>>(
-      vecs, B, R, table, A, c1, c2, inv, lim, svecs, valid, ovf, fp_hi, fp_lo,
-      inv_ok, con_ok);
+      vecs, B, R, table, A, c1, c2, group, P, Q, nv, view, inv, lim, svecs,
+      valid, ovf, fp_hi, fp_lo, inv_ok, con_ok);
   return static_cast<int>(cudaGetLastError());
 }

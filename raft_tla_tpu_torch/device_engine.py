@@ -9,7 +9,8 @@ words) and drives the chunk loop.
 Per chunk, in the reference's order (``device_engine.py:333-399``):
 
 1. the fused step (ops/pallas_step.build_step: the K1 kernel on the card,
-   the plain torch step on the CPU) over ``chunk`` rows of the current
+   the plain torch step on the CPU; under SYMMETRY or a VIEW its keys are
+   the viewed, orbit-minimal dedup keys) over ``chunk`` rows of the current
    level, read from the clamped window ``gstart = min(start, Ncap - B)``;
 2. the fingerprint-set insert :func:`dedup_insert` — first discoverer wins;
 3. the store append of the new states in discovery order, with parent,
@@ -49,6 +50,7 @@ from raft_tla_tpu_torch.engine import DEADLOCK, EngineResult, Violation
 from raft_tla_tpu_torch.models import interp, invariants as inv_mod, spec as S
 from raft_tla_tpu_torch.ops import pallas_fp, pallas_step
 from raft_tla_tpu_torch.ops import state as st
+from raft_tla_tpu_torch.ops import symmetry as sym
 from raft_tla_tpu_torch.utils import ckpt
 
 I32, I64 = torch.int32, torch.int64
@@ -202,7 +204,8 @@ class DeviceEngine:
         if self.caps.n_states < config.chunk:
             raise ValueError("Capacities.n_states must be >= config.chunk")
         self.step = pallas_step.build_step(
-            self.bounds, config.spec, tuple(config.invariants), self.device)
+            self.bounds, config.spec, tuple(config.invariants), self.device,
+            symmetry=tuple(config.symmetry), view=config.view)
         self.stats = {}
         self.carry = None
 
@@ -223,14 +226,21 @@ class DeviceEngine:
             "cov": torch.zeros((self.A + 1,), dtype=I64, device=dev),
         }
 
-    def init_carry(self, init_vec: np.ndarray, init_con: bool) -> tuple:
-        """Init in the store, its key (K2 on the card) in the table;
-        returns the key as a pair of uint32 ints."""
+    def init_carry(self, init_vec: np.ndarray, init_con: bool,
+                   key: tuple | None = None) -> tuple:
+        """Init in the store, its dedup key in the table; returns the key as
+        a pair of uint32 ints.  ``key`` is the host key of a run with
+        SYMMETRY or a VIEW (ops/symmetry.init_fingerprint); without one the
+        key is the row's fingerprint (K2 on the card)."""
         c = self._alloc()
         row = torch.as_tensor(init_vec, dtype=I32, device=self.device)
         c["store"][0] = row
         c["conflag"][0] = bool(init_con)
-        hi, lo = pallas_fp.fingerprint_rows(row.reshape(1, -1))
+        if key is None:
+            hi, lo = pallas_fp.fingerprint_rows(row.reshape(1, -1))
+        else:
+            hi, lo = (torch.tensor(np.array([x], np.uint32).view(np.int32),
+                                   device=self.device) for x in key)
         TB = c["tbl_hi"].shape[0] - 1
         b0 = lo.to(I64) & (TB - 1)
         c["tbl_hi"][b0, 0] = hi
@@ -452,8 +462,11 @@ class DeviceEngine:
         # CUDA events around each dedup insert (its device time)
         self._dedup_events = [] if self.device.type == "cuda" else None
         self.stats = {"chunks": 0}
-        init_key = self.init_carry(interp.to_vec(init_py, bounds),
-                                   interp.constraint_ok(init_py, bounds))
+        init_vec = interp.to_vec(init_py, bounds)
+        key = sym.init_fingerprint(self.config, init_py, init_vec) \
+            if self.config.symmetry or self.config.view else None
+        init_key = self.init_carry(init_vec,
+                                   interp.constraint_ok(init_py, bounds), key)
         if resume:
             self.load_checkpoint(resume, init_key)
         done = self._run(max_chunks, checkpoint, checkpoint_every_s, init_key)

@@ -26,9 +26,11 @@ import torch
 from raft_tla_tpu_torch.config import Bounds
 from raft_tla_tpu_torch.models import invariants as inv_mod
 from raft_tla_tpu_torch.models import spec as SP
+from raft_tla_tpu_torch.models import views
 from raft_tla_tpu_torch.ops import fingerprint as fpr
 from raft_tla_tpu_torch.ops import msgbits as mb
 from raft_tla_tpu_torch.ops import state as st
+from raft_tla_tpu_torch.ops import symmetry as sym
 
 I32 = torch.int32
 
@@ -474,28 +476,46 @@ def build_expand(bounds: Bounds, spec: str = "full"):
     return expand
 
 
-def build_step(bounds: Bounds, spec: str = "full", invariants: tuple = ()):
+def build_step(bounds: Bounds, spec: str = "full", invariants: tuple = (),
+               symmetry: tuple = (), view: str | None = None):
     """The plain fused frontier step: packed rows -> everything the engine
     needs, the same dict as the reference's ``kernels.build_step``.
 
     ``step(vecs int32[B, W]) -> dict`` with packed successors ``svecs
-    [B, A, W]``, ``valid``/``overflow`` ``[B, A]`` bool, fingerprint lanes
+    [B, A, W]``, ``valid``/``overflow`` ``[B, A]`` bool, dedup keys
     ``fp_hi``/``fp_lo`` ``[B, A]`` (int32 holding the uint32 bits),
     per-invariant truth ``inv_ok [B, A, n_inv]`` and StateConstraint
     satisfaction ``con_ok [B, A]``.  Runs on the device of ``vecs``.
+
+    The dedup key is the fingerprint of the successor, taken after the
+    ``view`` (models/views.py) when one is set and minimized over the
+    ``symmetry`` group (ops/symmetry.build_orbit_fp) when one is set; under
+    symmetry invalid lanes get key 0.  ``svecs``, ``inv_ok`` and ``con_ok``
+    are always those of the full, unviewed successor (the reference's
+    ``apply_stages``).
     """
     lay = st.Layout.of(bounds)
     expand = build_expand(bounds, spec)
     inv_fns = [inv_mod.torch_invariant(nm) for nm in invariants]
-    consts = {}
+    viewer = views.torch_view(view) if view else None
+    consts, orbit = {}, {}
 
     def step(vecs):
         B, dev = vecs.shape[0], vecs.device
         if dev not in consts:
             consts[dev] = fpr.torch_constants(lay.width, dev)
+            if symmetry:
+                orbit[dev] = sym.build_orbit_fp(bounds, symmetry, consts[dev])
         succs, valid, ovf = expand(st.unpack(vecs.to(I32), lay))
         svecs = st.pack(succs)
-        fp_hi, fp_lo = fpr.fingerprint(svecs, consts[dev])
+        ksuccs = viewer(succs) if viewer else succs
+        if symmetry:
+            fp_hi, fp_lo = orbit[dev](ksuccs)
+            fp_hi = torch.where(valid, fp_hi, 0)
+            fp_lo = torch.where(valid, fp_lo, 0)
+        else:
+            ksvecs = st.pack(ksuccs) if viewer else svecs
+            fp_hi, fp_lo = fpr.fingerprint(ksvecs, consts[dev])
         if inv_fns:
             inv_ok = torch.stack([f(succs) for f in inv_fns], dim=-1)
         else:

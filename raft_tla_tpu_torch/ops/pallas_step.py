@@ -5,7 +5,10 @@
 kernel, and for the CPU the plain torch step (ops/kernels.build_step); there
 is no gate and no fallback.  Both take ``vecs int32[B, W]`` and return the
 same dict (``svecs``, ``valid``, ``overflow``, ``fp_hi``, ``fp_lo``,
-``inv_ok``, ``con_ok``; keys as int32 holding the uint32 bits).
+``inv_ok``, ``con_ok``; keys as int32 holding the uint32 bits).  With
+``symmetry`` and ``view`` set, the keys are the viewed, orbit-minimal dedup
+keys: the kernel takes the group's permutations
+(ops/symmetry.kernel_tables) and the view's code (models/views.KERNEL_CODES).
 
 The kernel is compiled per layout (servers, log capacity, message slots are
 ``-D`` macros, see csrc/step.cu) and cached by that key.  It is held to
@@ -23,10 +26,12 @@ import torch
 from raft_tla_tpu_torch.config import Bounds
 from raft_tla_tpu_torch.models import invariants as inv_mod
 from raft_tla_tpu_torch.models import spec as SP
+from raft_tla_tpu_torch.models import views
 from raft_tla_tpu_torch.ops import build
 from raft_tla_tpu_torch.ops import kernels
 from raft_tla_tpu_torch.ops import pallas_fp
 from raft_tla_tpu_torch.ops import state as st
+from raft_tla_tpu_torch.ops import symmetry as sym
 
 SOURCE = "step.cu"
 
@@ -69,7 +74,8 @@ def _lib(bounds: Bounds):
     fn = lib.rt_step_launch
     fn.argtypes = ([ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p,
                     ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p,
-                    ctypes.c_void_p, ctypes.c_int]
+                    ctypes.c_void_p] + [ctypes.c_int] * 4
+                   + [ctypes.c_void_p, ctypes.c_int]
                    + [ctypes.c_int] * 4 + [ctypes.c_void_p] * 8)
     fn.restype = ctypes.c_int
     W = st.Layout.of(bounds).width
@@ -80,12 +86,12 @@ def _lib(bounds: Bounds):
 
 
 def build_step(bounds: Bounds, spec: str = "full", invariants: tuple = (),
-               device="cuda"):
+               device="cuda", symmetry: tuple = (), view: str | None = None):
     """The fused step for ``device``: the K1 launcher on a CUDA device, the
     plain torch step on the CPU."""
     device = torch.device(device)
     if device.type == "cpu":
-        return kernels.build_step(bounds, spec, invariants)
+        return kernels.build_step(bounds, spec, invariants, symmetry, view)
     if device.type != "cuda":
         raise ValueError(f"no step kernel for device {device}")
     if not torch.cuda.is_available():
@@ -99,6 +105,11 @@ def build_step(bounds: Bounds, spec: str = "full", invariants: tuple = (),
     n_inv = len(codes)
     inv_arr = (ctypes.c_int * max(1, n_inv))(*codes)
     consts = pallas_fp._device_constants(W, device)
+    group = torch.as_tensor(sym.kernel_tables(bounds, symmetry),
+                            device=device)
+    P, Q = sym.group_sizes(bounds, symmetry)
+    nv = bounds.n_values if "Value" in symmetry else 0
+    view_code = views.KERNEL_CODES[view]
 
     def step(vecs):
         global launches
@@ -121,6 +132,7 @@ def build_step(bounds: Bounds, spec: str = "full", invariants: tuple = (),
         }
         err = launch(vecs.data_ptr(), B, table.data_ptr(), A,
                      consts[0].data_ptr(), consts[1].data_ptr(),
+                     group.data_ptr(), P, Q, nv, view_code,
                      ctypes.cast(inv_arr, ctypes.c_void_p), n_inv,
                      bounds.max_term, bounds.max_log, bounds.max_msgs,
                      bounds.max_dup,

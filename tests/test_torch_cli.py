@@ -60,19 +60,29 @@ def _result_lines(text):
     return lines[k:]
 
 
-@pytest.mark.parametrize("args,invariant,servers,engine,want_code", [
-    (["--spec", "election", "--max-term", "2", "--max-log", "0",
-      "--max-msgs", "2", "--coverage"], "NoTwoLeaders", "s1, s2", "ref", 0),
-    (["--spec", "election", "--max-term", "2", "--max-log", "0",
-      "--max-msgs", "2", "--deadlock", "--chunk", "1"], "NoTwoLeaders",
-     "s1", "ref", 11),
+ELECTION_2S = ["--spec", "election", "--max-term", "2", "--max-log", "0",
+               "--max-msgs", "2"]
+
+
+@pytest.mark.parametrize("args,invariant,servers,engine,want_code,extra", [
+    (ELECTION_2S + ["--coverage"], "NoTwoLeaders", "s1, s2", "ref", 0, ""),
+    (ELECTION_2S + ["--deadlock", "--chunk", "1"], "NoTwoLeaders",
+     "s1", "ref", 11, ""),
     pytest.param(["--spec", "election", "--max-term", "3", "--max-log", "0",
                   "--max-msgs", "1", "--chunk", "1024"], "NaiveNoTwoLeaders",
-                 "s1, s2, s3", "device", 12, marks=pytest.mark.slow),
-], ids=["pass", "deadlock", "violation"])
+                 "s1, s2, s3", "device", 12, "", marks=pytest.mark.slow),
+    (ELECTION_2S + ["--coverage"], "NoTwoLeaders", "s1, s2", "ref", 0,
+     "SYMMETRY SymServer\n"),
+    (ELECTION_2S + ["--symmetry", "--coverage"], "NoTwoLeaders", "s1, s2",
+     "ref", 0, ""),
+    (["--spec", "full", "--max-term", "2", "--max-log", "1",
+      "--max-msgs", "1", "--view", "deadvotes", "--coverage"],
+     "NoTwoLeaders", "s1, s2", "ref", 0, ""),
+], ids=["pass", "deadlock", "violation", "symmetry-stanza", "symmetry-flag",
+        "view"])
 def test_cli_result_lines_match_jax_cli(tmp_path, args, invariant, servers,
-                                       engine, want_code):
-    cfg = write_cfg(tmp_path / "m.cfg", servers, invariant)
+                                       engine, want_code, extra):
+    cfg = write_cfg(tmp_path / "m.cfg", servers, invariant, extra)
     code, out, _ = _run(cli.main, [cfg, "--device", "cpu", *args])
     jcode, jout, _ = _run(jcli.main, [cfg, "--engine", engine, *args])
     assert code == jcode == want_code
@@ -82,11 +92,14 @@ def test_cli_result_lines_match_jax_cli(tmp_path, args, invariant, servers,
 def test_cli_refuses_what_is_not_ported(tmp_path):
     cfg = write_cfg(tmp_path / "m.cfg")
     with pytest.raises(SystemExit) as e:
-        _run(cli.main, [cfg, "--symmetry"])
+        _run(cli.main, [cfg, "--faithful"])
     assert e.value.code == 2
-    sym = write_cfg(tmp_path / "s.cfg", extra="SYMMETRY SymServer\n")
-    code, _, err = _run(cli.main, [sym, "--device", "cpu"])
-    assert code == cli.EXIT_ERROR and "ROADMAP.md queue A: symmetry" in err
+    view = write_cfg(tmp_path / "v.cfg", extra="VIEW MyView\n")
+    code, _, err = _run(cli.main, [view, "--device", "cpu"])
+    jcode, _, jerr = _run(jcli.main, [view, "--engine", "ref"])
+    assert code == jcode == cli.EXIT_ERROR
+    assert "VIEW MyView not supported: parity mode" in err
+    assert err.splitlines()[-1] == jerr.splitlines()[-1]
     expr = write_cfg(tmp_path / "e.cfg", invariant="\\A i : role[i] <= 2")
     code, _, err = _run(cli.main, [expr, "--device", "cpu"])
     assert code == cli.EXIT_ERROR and "expression invariants" in err

@@ -161,3 +161,125 @@ def test_cuda_engine_without_a_gpu_raises():
     cfg, _ = _configs(TOY, "election", ("NoTwoLeaders",), 64)
     with pytest.raises(RuntimeError, match="no GPU"):
         DeviceEngine(cfg, Capacities(**CAPS))
+
+
+# -- SYMMETRY and VIEW: the dedup-key stage ----------------------------------
+
+FULL22 = dict(n_servers=2, n_values=2, max_term=2, max_log=1, max_msgs=2)
+ELECT3 = dict(n_servers=3, n_values=1, max_term=2, max_log=0, max_msgs=1)
+
+
+def _sym_configs(kw, spec, axes, view, chunk, invs=("NoTwoLeaders",)):
+    return (CheckConfig(bounds=Bounds(**kw), spec=spec, invariants=invs,
+                        symmetry=axes, view=view, chunk=chunk),
+            JConfig(bounds=JBounds(**kw), spec=spec, invariants=invs,
+                    symmetry=axes, view=view, chunk=chunk))
+
+
+@pytest.fixture(scope="module")
+def sym_toy_jax():
+    """The JAX engine for the 1,514-orbit toy, built once for the module."""
+    _, jcfg = _sym_configs(TOY, "election", ("Server",), None, 64)
+    return jdev.DeviceEngine(jcfg, jdev.Capacities(**CAPS), seg_chunks=8)
+
+
+def _engines_agree(kw, spec, axes, view, chunk, want_n, jeng=None,
+                   caps=CAPS):
+    """The port's engine on the CPU against the JAX engine: the results,
+    and the stored rows and parents of the final carry."""
+    cfg, jcfg = _sym_configs(kw, spec, axes, view, chunk)
+    eng = DeviceEngine(cfg, Capacities(**caps), device="cpu")
+    got = eng.check()
+    jeng = jeng or jdev.DeviceEngine(jcfg, jdev.Capacities(**caps))
+    want = jeng.check(retain_carry=True)
+    _same_result(got, want)
+    assert got.n_states == want_n
+    n = got.n_states
+    mine = eng.carry_to_numpy()
+    theirs = [np.asarray(x) for x in jeng.retained_carry]
+    assert np.array_equal(mine[0][:n], theirs[0][:n])         # store rows
+    assert np.array_equal(mine[1][:n], theirs[1][:n])         # parents
+    assert np.array_equal(mine[4], theirs[4])                 # key table
+    return got
+
+
+def test_symmetric_engine_matches_jax_engine(sym_toy_jax):
+    _engines_agree(TOY, "election", ("Server",), None, 64, 1514, sym_toy_jax)
+    sym_toy_jax.retained_carry = None
+
+
+def test_value_symmetric_engine_matches_jax_engine():
+    _engines_agree(FULL22, "full", ("Server", "Value"), None, 256, 25281)
+
+
+@pytest.mark.slow
+@pytest.mark.parametrize("kw,spec,axes,view,chunk,want_n", [
+    (ELECT3, "election", ("Server",), None, 1024, 23902),
+    (ELECT3, "election", (), "deadvotes", 4096, 129134),
+    (FULL22, "full", ("Server",), None, 1024, 37472),
+    (FULL22, "full", ("Value",), None, 1024, 50515),
+], ids=["election-3s-Server", "election-3s-deadvotes", "full-2s2v-Server",
+        "full-2s2v-Value"])
+def test_verified_quotient_counts_match_jax_engine(kw, spec, axes, view,
+                                                   chunk, want_n):
+    """The other verified orbit and view counts (RESULTS.md), each with the
+    JAX engine's levels, transitions, coverage, rows and parents."""
+    _engines_agree(kw, spec, axes, view, chunk, want_n,
+                   caps=dict(n_states=1 << 18, levels=64))
+
+
+def test_symmetric_seeded_violation_matches_oracle_and_replays():
+    """The case of the JAX package's tests/test_symmetry.py:117."""
+    kw = dict(n_servers=3, n_values=1, max_term=3, max_log=0, max_msgs=4,
+              max_dup=1)
+    cfg, jcfg = _sym_configs(kw, "election", ("Server",), None, 256,
+                             invs=("NaiveNoTwoLeaders",))
+    jstart = jinterp.init_state(jcfg.bounds)._replace(
+        role=(JS.LEADER, JS.FOLLOWER, JS.CANDIDATE), term=(2, 3, 3),
+        votedFor=(1, 3, 0), vGrant=(0b011, 0, 0b100),
+        msgs=((jmb.rv_response(3, 1, 1, 2), 1),))
+    start = _port_state(jstart)
+    ref = refbfs.check(jcfg, init_override=jstart)
+    got = DeviceEngine(cfg, Capacities(n_states=1 << 15, levels=64),
+                       device="cpu").check(init_override=start)
+    assert got.violation.invariant == "NaiveNoTwoLeaders"
+    assert got.violation.state == _port_state(ref.violation.state)
+    assert got.levels == ref.levels
+    trace = got.violation.trace
+    assert trace[0] == (None, start)
+    for (_l, prev), (_label, cur) in zip(trace, trace[1:]):
+        assert cur in [t for _i, t in interp.successors(prev, cfg.bounds,
+                                                       spec="election")]
+
+
+def test_symmetric_checkpoints_move_both_ways(sym_toy_jax, tmp_path):
+    """Under SYMMETRY Server: a JAX mid-search checkpoint resumes in the
+    port, a port one resumes in JAX, both to the straight run's result; a
+    run without symmetry refuses the symmetric checkpoint."""
+    cfg, jcfg = _sym_configs(TOY, "election", ("Server",), None, 64)
+    jeng = sym_toy_jax
+    straight = jeng.check()
+    assert straight.n_states == 1514
+    path = str(tmp_path / "jax.ckpt")
+    jeng.SEG_MAX = 8
+    jeng.seg_chunks = 8
+    jeng.check(checkpoint=path, checkpoint_every_s=0.0)
+    with np.load(path) as z:
+        assert 1 < int(z["c6"]) < straight.n_states
+    _same_result(DeviceEngine(cfg, Capacities(**CAPS), device="cpu")
+                 .check(resume=path), straight)
+
+    port_path = str(tmp_path / "port.ckpt")
+    eng = DeviceEngine(cfg, Capacities(**CAPS), device="cpu")
+    assert not eng.check(checkpoint=port_path, max_chunks=6).complete
+    init = jinterp.init_state(jcfg.bounds)
+    init_key = tuple(int(x) for x in jdev.sym_mod.init_fingerprint(
+        jcfg, init, jinterp.to_vec(init, jcfg.bounds)))
+    assert ckpt.config_digest(cfg, eng.caps, init_key) == \
+        jdev.ckpt.config_digest(jcfg, jeng.caps, init_key)
+    _same_result(jeng.check(resume=port_path), straight)
+
+    plain, _ = _configs(TOY, "election", ("NoTwoLeaders",), 64)
+    with pytest.raises(ValueError, match="different model config"):
+        DeviceEngine(plain, Capacities(**CAPS), device="cpu").check(
+            resume=port_path)

@@ -57,6 +57,38 @@ def test_step_kernel_matches_plain_step(cuda, kw, spec):
         assert not (diff & val).any(), k
 
 
+@pytest.mark.parametrize("kw,spec,axes,view", [
+    (dict(n_servers=3, n_values=2, max_term=2, max_log=1, max_msgs=2),
+     "full", ("Server", "Value"), "deadvotes"),
+    (dict(n_servers=3, n_values=2, max_term=2, max_log=1, max_msgs=2),
+     "full", (), "deadvotes"),
+    (dict(n_servers=4, n_values=1, max_term=2, max_log=0, max_msgs=1),
+     "election", ("Server",), None),
+], ids=["full-3s2v-ServerxValue-deadvotes", "full-3s2v-deadvotes",
+        "election-4s-Server"])
+def test_step_kernel_dedup_key_matches_plain_step(cuda, kw, spec, axes,
+                                                 view):
+    """K1's orbit and view stage: the same contract, keys included."""
+    from raft_tla_tpu_torch.ops import symmetry as sym
+    b = Bounds(**kw)
+    eng = DeviceEngine(CheckConfig(bounds=b, spec=spec, invariants=INVS,
+                                   chunk=512), Capacities(n_states=1 << 18))
+    res = eng.check(max_chunks=40)
+    rows = eng.carry["store"][:min(res.n_states, 2048)]
+    before = sym.plain_calls
+    got = pallas_step.build_step(b, spec, INVS, cuda, symmetry=axes,
+                                 view=view)(rows)
+    assert sym.plain_calls == before           # the card path: no plain key
+    want = kernels.build_step(b, spec, INVS, axes, view)(rows)
+    val = want["valid"]
+    assert torch.equal(got["valid"], val)
+    for k in ("svecs", "overflow", "fp_hi", "fp_lo", "inv_ok", "con_ok"):
+        diff = got[k] != want[k]
+        if diff.dim() > 2:
+            diff = diff.flatten(2).any(-1)
+        assert not (diff & val).any(), k
+
+
 def test_fingerprint_kernel_matches_plain_version(cuda):
     rng = np.random.default_rng(5)
     for W in (57, 60, 1):
