@@ -7,13 +7,15 @@ keeps its own copy, under the same module name, so each counterpart is easy
 to find.
 
 The port covers the reference's main path, ``python -m raft_tla_tpu.check``
-with the device engine, in parity mode, with SYMMETRY (Server, Value) and
-the registered VIEWs: cfg -> :class:`CheckConfig` -> a BFS resident on the
-GPU -> verdict, trace and TLC exit code.  Two hand-written Hopper kernels
-carry it:
+with the device engine, in parity and faithful mode (``--faithful``: the
+history variables as state), with SYMMETRY (Server, Value) and the
+registered VIEWs: cfg -> :class:`CheckConfig` -> a BFS resident on the GPU
+-> verdict, trace and TLC exit code.  Two hand-written Hopper kernels carry
+it:
 
-- ``csrc/step.cu`` — the fused frontier step with its dedup-key stage
-  (view, orbit-minimal fingerprint) (``ops/pallas_step.py``);
+- ``csrc/step.cu`` — the fused frontier step with its history stage and
+  its dedup-key stage (view, orbit-minimal fingerprint)
+  (``ops/pallas_step.py``);
 - ``csrc/fingerprint.cu`` — the two-lane fingerprint (``ops/pallas_fp.py``).
 
 Each has a plain PyTorch version beside it; a wrapper runs the plain version

@@ -7,10 +7,12 @@ device engine runs the search on the card (``--device cuda``, the default)
 or on the CPU (``--device cpu``).  The result lines and exit codes are the
 reference's: 0 no error, 11 deadlock, 12 invariant violation, 1 error.
 
-This port supports the device engine in parity mode, with SYMMETRY on the
-Server and Value axes (``--symmetry`` or the cfg stanza), the registered
-VIEWs (``--view``) and registry invariants.  The reference's other flags
-and stanzas are refused with the ROADMAP.md item that will bring them.
+This port supports the device engine in parity and faithful mode
+(``--faithful``: the history variables carried as state, with the
+``*Hist`` invariants), with SYMMETRY on the Server and Value axes
+(``--symmetry`` or the cfg stanza), the registered VIEWs (``--view``) and
+registry invariants.  The reference's other flags and stanzas are refused
+with the ROADMAP.md item that will bring them.
 """
 
 from __future__ import annotations
@@ -26,7 +28,6 @@ EXIT_ERROR = 1
 
 # Reference flags that this slice refuses, with the ROADMAP.md queue item.
 _NOT_PORTED = {
-    "--faithful": "faithful mode",
     "--property": "liveness",
     "--simulate": "simulation and fleets",
     "--emit-tlc": "TLC export",
@@ -55,6 +56,15 @@ def build_argparser() -> argparse.ArgumentParser:
                    help="CONSTRAINT: messages[m] <= N")
     p.add_argument("--deadlock", action="store_true",
                    help="check for deadlocks (exit code 11 on one)")
+    p.add_argument("--faithful", action="store_true",
+                   help="carry the proof-only history variables (elections/"
+                        "allLogs/voterLog/mlog, raft.tla:39,44,77) as real "
+                        "fingerprinted state, as stock TLC does on the "
+                        "unmodified spec; enables the *Hist invariants "
+                        "(default: parity mode, history stripped)")
+    p.add_argument("--max-elections", type=int, default=6,
+                   help="elections-history slot capacity (--faithful only); "
+                        "exceeding it aborts loudly")
     p.add_argument("--chunk", type=int, default=1024,
                    help="frontier states expanded per step")
     p.add_argument("--cap", type=int, default=1 << 20,
@@ -92,12 +102,14 @@ def resolve_check_config(cfg, spec: str = "full", max_term: int = 3,
                          max_log: int = 2, max_msgs: int = 4,
                          max_dup: int = 1, chunk: int = 1024,
                          deadlock: bool = False, symmetry: bool = False,
-                         view: str | None = None, path: str | None = None):
+                         view: str | None = None, path: str | None = None,
+                         faithful: bool = False, max_elections: int = 6):
     """cfg -> ``CheckConfig``: the Raft branch of the reference's
-    ``serve/jobs.resolve_check_config`` in parity mode.  ``symmetry`` is
-    the ``--symmetry`` flag (Server), ``view`` the ``--view`` flag.  Raises
-    ValueError on a bad cfg and NotImplementedError on a stanza that is
-    not ported."""
+    ``serve/jobs.resolve_check_config``.  ``symmetry`` is the
+    ``--symmetry`` flag (Server), ``view`` the ``--view`` flag,
+    ``faithful``/``max_elections`` the ``--faithful``/``--max-elections``
+    flags.  Raises ValueError on a bad cfg and NotImplementedError on a
+    stanza that is not ported."""
     from raft_tla_tpu_torch.config import (
         Bounds, CheckConfig, not_ported)
     from raft_tla_tpu_torch.models import invariants as inv_mod
@@ -134,14 +146,23 @@ def resolve_check_config(cfg, spec: str = "full", max_term: int = 3,
         raise ValueError(
             f"CONSTRAINT {cfg.constraints} not supported: the state "
             "constraint is the built-in bound, set via --max-* flags")
-    if cfg.view not in (None, "ParityView"):
+    if faithful:
+        # Faithful mode fingerprints full states; a cfg that declares the
+        # history-stripping view would contradict it.
+        if cfg.view is not None:
+            raise ValueError(
+                f"VIEW {cfg.view} contradicts --faithful: faithful mode "
+                "fingerprints full states (no view); re-emit the TLC twin "
+                "with --faithful --emit-tlc")
+    elif cfg.view not in (None, "ParityView"):
         raise ValueError(
             f"VIEW {cfg.view} not supported: parity mode fingerprints "
             "under the built-in history-free ParityView")
     bounds = Bounds(n_servers=len(cfg.server_names()),
                     n_values=len(cfg.value_names()),
                     max_term=max_term, max_log=max_log,
-                    max_msgs=max_msgs, max_dup=max_dup)
+                    max_msgs=max_msgs, max_dup=max_dup,
+                    history=faithful, max_elections=max_elections)
     return CheckConfig(bounds=bounds, spec=spec,
                        invariants=tuple(cfg.invariants), symmetry=axes,
                        chunk=chunk, check_deadlock=deadlock, view=view)
@@ -179,7 +200,8 @@ def run(argv=None) -> tuple:
             load_cfg(args.cfg), spec=args.spec, max_term=args.max_term,
             max_log=args.max_log, max_msgs=args.max_msgs,
             max_dup=args.max_dup, chunk=args.chunk, deadlock=args.deadlock,
-            symmetry=args.symmetry, view=args.view, path=args.cfg)
+            symmetry=args.symmetry, view=args.view, path=args.cfg,
+            faithful=args.faithful, max_elections=args.max_elections)
     except (OSError, ValueError, NotImplementedError) as e:
         print(f"Error: {e}", file=sys.stderr)
         return EXIT_ERROR, None, None
@@ -191,6 +213,9 @@ def run(argv=None) -> tuple:
           f"(from {args.cfg})")
     print(f"Constraint: MaxTerm={b.max_term} MaxLogLen={b.max_log} "
           f"MaxMsgs={b.max_msgs} MaxDup={b.max_dup}")
+    if b.history:
+        print("Faithful mode: history variables (elections/allLogs/"
+              f"voterLog/mlog) carried; elections capacity {b.max_elections}")
     print(f"Invariants: {', '.join(config.invariants) or '(none)'}")
     if config.symmetry:
         print(f"Symmetry: {' x '.join(config.symmetry)} permutations "

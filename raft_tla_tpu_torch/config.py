@@ -11,9 +11,10 @@ Field names, defaults and class names are kept equal to the reference's, so
 ``utils/ckpt.config_digest`` gives the same digest for the same config and a
 checkpoint moves between the two packages.
 
-Scope: parity mode only, SYMMETRY on the Server and Value axes, the
-registered VIEWs (models/views.py), registry invariants only.  Everything
-else raises :class:`NotImplementedError` naming the ROADMAP.md queue item
+Scope: parity and faithful mode (``Bounds.history``: the proof-only history
+variables carried as state, ops/loguniv.py), SYMMETRY on the Server and
+Value axes, the registered VIEWs (models/views.py), registry invariants
+only.  Everything else raises :class:`NotImplementedError` naming the ROADMAP.md queue item
 that will bring it; nothing runs something else.
 """
 
@@ -27,6 +28,9 @@ _MAX_INDEX_CAP = 62     # 6-bit index fields; nextIndex can reach log_cap + 1
 _MAX_SERVERS = 14       # 4-bit src/dst fields; votedFor uses n+1 symbols
 _MAX_VALUES = 15        # 4-bit value field; values are 1..V (0 = none)
 _MAX_DUP_CAP = 1 << 20  # multiplicities live in full int32 slots
+# Faithful mode: log ranks+1 must fit the 14-bit mlog field and the allLogs
+# bitmask must stay small (<= 32 int32 words).
+_MAX_LOG_UNIVERSE = 1024
 
 
 def not_ported(what: str, item: str) -> NotImplementedError:
@@ -46,7 +50,13 @@ class Bounds:
     max_log: int = 2       # constraint: \A i : Len(log[i]) <= max_log
     max_msgs: int = 4      # constraint: Cardinality(DOMAIN messages) <= max_msgs
     max_dup: int = 1       # constraint: \A m : messages[m] <= max_dup
-    history: bool = False  # faithful mode (history variables): not ported
+    # Faithful mode: carry the proof-only history variables (elections
+    # raft.tla:39, allLogs :44, voterLog :77, the mlog message fields
+    # :220-222/297-299) as fingerprinted state, as stock TLC does on the
+    # unmodified spec.  Off (parity mode) they are stripped.
+    history: bool = False
+    # Capacity of the `elections` slot encoding; exceeding it is a loud
+    # engine failure, never a clamp.
     max_elections: int = 6
 
     def __post_init__(self) -> None:
@@ -63,8 +73,17 @@ class Bounds:
         if self.max_dup < 1 or self.dup_cap > _MAX_DUP_CAP:
             raise ValueError(f"max_dup out of range: {self.max_dup}")
         if self.history:
-            raise not_ported("faithful mode (history variables)",
-                             "faithful mode")
+            if not (1 <= self.max_elections <= 64):
+                raise ValueError(
+                    f"max_elections must be in [1,64], got {self.max_elections}")
+            from raft_tla_tpu_torch.ops.loguniv import LogUniverse
+            uni = LogUniverse.of(self)
+            if uni.size > _MAX_LOG_UNIVERSE:
+                raise ValueError(
+                    f"faithful mode needs a log universe <= "
+                    f"{_MAX_LOG_UNIVERSE} (got {uni.size}: term_cap="
+                    f"{self.term_cap} x {self.n_values} values, lengths 0.."
+                    f"{self.log_cap}); shrink max_term/max_log/n_values")
 
     @property
     def term_cap(self) -> int:
@@ -99,8 +118,15 @@ class CheckConfig:
     #   exact view (models/views.py) folded into every dedup key
 
     def __post_init__(self) -> None:
-        from raft_tla_tpu_torch.models.invariants import REGISTRY
+        from raft_tla_tpu_torch.models.invariants import (
+            HISTORY_REGISTRY, REGISTRY)
         from raft_tla_tpu_torch.models.spec import SPECS
+        if not self.bounds.history:
+            hist = [nm for nm in self.invariants if nm in HISTORY_REGISTRY]
+            if hist:
+                raise ValueError(
+                    f"invariant(s) {hist} read the history variables; they "
+                    "require faithful mode (Bounds.history / --faithful)")
         if self.spec not in SPECS:
             raise ValueError(f"unknown spec {self.spec!r} "
                              f"(known: {sorted(SPECS)})")

@@ -2,13 +2,14 @@
 //
 // Replaces: raft_tla_tpu/ops/pallas_step.py `build_step_megakernel`
 // (:131; kernel body `kernel` at :175, launch `_call` at :184,
-// pl.pallas_call at :194), in its parity-mode form.  The TPU kernel stages
-// the XLA step's jaxpr over 128-row blocks so that the [B, A, W] candidate
-// block stays in VMEM between stages; this kernel computes the same lanes
-// as the plain torch step (ops/kernels.build_step): unpack, the action
-// family's guard and effect, canonicalize (message-slot sort), pack, the
-// dedup key (VIEW, then the orbit-minimal fingerprint under SYMMETRY),
-// invariants, StateConstraint.
+// pl.pallas_call at :194), whole: parity and faithful mode.  The TPU kernel
+// stages the XLA step's jaxpr over 128-row blocks so that the [B, A, W]
+// candidate block stays in VMEM between stages; this kernel computes the
+// same lanes as the plain torch step (ops/kernels.build_step): unpack, the
+// action family's guard and effect, the history updates and the allLogs
+// union (faithful mode), canonicalize (message-slot sort, election-slot
+// sort), pack, the dedup key (VIEW, then the orbit-minimal fingerprint
+// under SYMMETRY), invariants, StateConstraint.
 //
 // Design: one thread per (row, action lane).  A block holds R = 256 / A
 // rows; it copies their W words once into shared memory, and each of the A
@@ -16,9 +17,24 @@
 // family (read from a small per-lane table), and finishes the candidate
 // without it ever touching device memory between stages: every output is
 // written once.  The layout's sizes (N servers, L log capacity, S message
-// slots, hence W) are compile-time macros; build.py compiles one library
-// per layout.  The struct sits in the thread's local memory, which stays
-// in L1 (see `rd`/`wr` below for why not in registers).
+// slots, and in faithful mode E election slots, WA allLogs words and the
+// log universe's T terms and V values, hence W) are compile-time macros;
+// build.py compiles one library per layout.  A parity layout has E = 0 and
+// compiles none of the history code.  The struct sits in the thread's
+// local memory, which stays in L1 (see `rd`/`wr` below for why not in
+// registers).
+//
+// Faithful mode (ops/state.HISTORY_FIELDS, ops/loguniv.py): logs enter the
+// history as ranks in the bounded log universe, rank = off[len] + the
+// entry codes (t-1)*V + (v-1) read as base-T*V digits (`log_rank`).
+// Restart and Timeout clear voterLog[i]; AppendEntries and the RequestVote
+// reply put rank(log[i]) into the g field of the lo word; a granted vote
+// response fills voterLog[i][j] = g + 1 unless an entry is there;
+// BecomeLeader inserts (term, i, rank, votesGranted, voterLog[i]) into the
+// first free election slot unless an equal record is present, and a full
+// table is the lane's overflow.  allLogs' is the parent's allLogs with the
+// ranks of the PARENT's logs added (raft.tla:464-465), the same on every
+// lane, so it is computed once per thread before the action runs.
 //
 // The dedup key (ops/symmetry.build_orbit_fp, ops/kernels.build_step):
 // key = min over g in [0, P*Q) of fp(canonicalize(g(view(s)))), the min
@@ -44,6 +60,19 @@
 // bytes (8.7 KB at 6 servers), copied into shared memory by each block.
 // All lanes of a block walk g in step, so each table read is a broadcast.
 //
+// Faithful mode under Value symmetry also needs the Q rank maps
+// (rank -> rank of the value-permuted log, ops/symmetry.kernel_rank_maps),
+// int16 [Q][U].  They stay in device memory and are read through the
+// read-only cache (__ldg), not copied to shared memory: at U = 1,024 and
+// V = 5 they take 240 KB, over a block's shared memory, while the flagship
+// layout's 2 x 43 entries (172 bytes) stay hot in L1 either way.  Lanes
+// read them at data-dependent ranks, so a shared copy would buy no
+// broadcast.  Server permutations fix allLogs, eLog, eTerm and mlog (ranks
+// hold no server ids); voterLog reorders both axes, occupied election
+// slots map eLeader through p and bit-permute eVotes, eVLog reorders its
+// columns.  The election slots are remapped into registers and re-sorted
+// per group element, like the message slots.
+//
 // What bounds it on the H100: bytes written at |G| = 1 (each lane writes
 // its packed successor, W int32, plus its masks and keys: about
 // A * (W + 5) * 4 bytes per input row of W * 4 bytes); integer work at
@@ -64,6 +93,12 @@
 #if !defined(RT_N) || !defined(RT_L) || !defined(RT_S)
 #error "compile with -DRT_N=<servers> -DRT_L=<log capacity> -DRT_S=<slots>"
 #endif
+#ifndef RT_E
+#define RT_E 0
+#endif
+#if RT_E > 0 && (!defined(RT_WA) || !defined(RT_T) || !defined(RT_V))
+#error "a faithful layout (RT_E > 0) also needs -DRT_WA, -DRT_T and -DRT_V"
+#endif
 
 namespace {
 
@@ -73,8 +108,23 @@ constexpr int O_ROLE = 0, O_TERM = N, O_VOTED = 2 * N, O_COMMIT = 3 * N,
               O_LOGLEN = 4 * N, O_LOGTERM = 5 * N, O_LOGVAL = 5 * N + N * L,
               O_VRESP = 5 * N + 2 * N * L, O_VGRANT = O_VRESP + N,
               O_NEXT = O_VGRANT + N, O_MATCH = O_NEXT + N * N,
-              O_MHI = O_MATCH + N * N, O_MLO = O_MHI + S, O_MCNT = O_MLO + S,
-              W = O_MCNT + S;
+              O_MHI = O_MATCH + N * N, O_MLO = O_MHI + S, O_MCNT = O_MLO + S;
+#if RT_E > 0
+// Faithful mode: ops/state.HISTORY_FIELDS after the parity fields, and the
+// log universe (ops/loguniv.py): radix R = T*V, off(k) = (R^k - 1)/(R - 1)
+// logs shorter than k, U = off(L + 1) logs in all.
+constexpr int E = RT_E, WA = RT_WA, TC = RT_T, NV = RT_V, RADIX = TC * NV;
+constexpr int O_ALLLOGS = O_MCNT + S, O_VLOG = O_ALLLOGS + WA,
+              O_ETERM = O_VLOG + N * N, O_ELEADER = O_ETERM + E,
+              O_ELOG = O_ELEADER + E, O_EVOTES = O_ELOG + E,
+              O_EVLOG = O_EVOTES + E, W = O_EVLOG + E * N;
+constexpr int off_c(int k) { return k == 0 ? 0 : off_c(k - 1) * RADIX + 1; }
+constexpr int U = off_c(L + 1);
+static_assert((U + 31) / 32 == WA, "allLogs words do not match the universe");
+static_assert(U <= 1024, "the log universe is capped at 1,024 ranks");
+#else
+constexpr int W = O_MCNT + S;
+#endif
 
 // models/spec.FAMILY_CODES order.
 enum Family {
@@ -86,7 +136,9 @@ enum MType { M_RVREQ = 1, M_RVRESP = 2, M_AEREQ = 3, M_AERESP = 4 };
 // models/invariants.CODES order.
 enum Invariant {
   INV_ELECTION_SAFETY, INV_NAIVE_NO_TWO_LEADERS, INV_LOG_MATCHING,
-  INV_COMMITTED_WITHIN_LOG, INV_LEADER_COMPLETENESS
+  INV_COMMITTED_WITHIN_LOG, INV_LEADER_COMPLETENESS,
+  INV_ELECTION_SAFETY_HIST, INV_LEADER_COMPLETENESS_HIST,
+  INV_ALL_LOGS_PREFIX_CLOSED
 };
 
 constexpr int kMaxInv = 8;
@@ -109,6 +161,10 @@ struct St {
   int vresp[N], vgrant[N];
   int next[N][N], match[N][N];
   int mhi[S], mlo[S], mcnt[S];
+#if RT_E > 0
+  int alllogs[WA], vlog[N][N];
+  int eterm[E], eleader[E], elog[E], evotes[E], evlog[E][N];
+#endif
 };
 
 // -- struct access at a runtime index ---------------------------------------
@@ -175,6 +231,7 @@ __device__ __forceinline__ int fc(int lo) { return fld(lo, 0, 1); }
 __device__ __forceinline__ int fd(int lo) { return fld(lo, 1, 6); }
 __device__ __forceinline__ int fe(int lo) { return fld(lo, 7, 4); }
 __device__ __forceinline__ int ff(int lo) { return fld(lo, 11, 6); }
+__device__ __forceinline__ int fg(int lo) { return fld(lo, 17, 14); }
 
 // Shifts through uint32, so the bits match int32 two's-complement packing.
 __device__ __forceinline__ int shl(int x, int s) {
@@ -184,8 +241,9 @@ __device__ __forceinline__ int pack_hi(int mt, int term, int a, int b, int s,
                                        int d) {
   return mt | shl(term, 3) | shl(a, 9) | shl(b, 15) | shl(s, 21) | shl(d, 25);
 }
-__device__ __forceinline__ int pack_lo(int c, int d, int e, int f) {
-  return c | shl(d, 1) | shl(e, 7) | shl(f, 11);
+__device__ __forceinline__ int pack_lo(int c, int d, int e, int f,
+                                       int g = 0) {
+  return c | shl(d, 1) | shl(e, 7) | shl(f, 11) | shl(g, 17);
 }
 
 // -- bag operations (raft.tla:106-130) -------------------------------------
@@ -240,6 +298,73 @@ __device__ __forceinline__ int last_term(const St& s, int i) {
   return ln > 0 ? rd2(s.logterm, i, ln - 1) : 0;
 }
 
+#if RT_E > 0
+// -- the log universe (ops/loguniv.py) --------------------------------------
+
+// off(k) for 0 <= k <= L + 1 (0 past the end, never asked).
+__device__ __forceinline__ int log_off(int k) {
+  int o = 0, r = 0;
+#pragma unroll
+  for (int j = 1; j <= L + 1; ++j) {
+    o = o * RADIX + 1;
+    if (j == k) r = o;
+  }
+  return r;
+}
+
+// Rank of log[i] (i and the length clamped, as the plain step gathers).
+__device__ __forceinline__ int log_rank(const St& s, int i) {
+  const int r = clampi(i, N);
+  const int ln = min(max(s.loglen[r], 0), L);
+  int acc = 0;
+#pragma unroll
+  for (int k = 0; k < L; ++k)
+    if (k < ln)
+      acc = acc * RADIX + (s.logterm[r][k] - 1) * NV + (s.logval[r][k] - 1);
+  return log_off(ln) + acc;
+}
+
+__device__ __forceinline__ int rank_len(int id) {
+  int ln = 0;
+#pragma unroll
+  for (int k = 1; k <= L; ++k)
+    if (id >= log_off(k)) ln = k;
+  return ln;
+}
+
+// Rank of the log minus its last entry (the empty log maps to 0).
+__device__ __forceinline__ int prefix_rank(int id) {
+  const int ln = rank_len(id);
+  const int kk = ln < 1 ? 1 : ln;
+  const int rest = max(id - log_off(kk), 0);
+  return ln > 0 ? log_off(kk - 1) + rest / RADIX : 0;
+}
+
+// Rank -> the log's entries (0 past its length) and length.
+__device__ __forceinline__ void decode_log(int id, int (&t)[L], int (&v)[L],
+                                          int* len) {
+  const int ln = rank_len(id);
+  int rem = id - log_off(ln);
+#pragma unroll
+  for (int k = 0; k < L; ++k) {
+    int w = 1;
+#pragma unroll
+    for (int e = 1; e < L; ++e)
+      if (ln - 1 - k >= e) w *= RADIX;
+    const bool live = k < ln;
+    const int digit = live ? rem / w : 0;
+    if (live) rem -= digit * w;
+    t[k] = live ? digit / NV + 1 : 0;
+    v[k] = live ? digit % NV + 1 : 0;
+  }
+  *len = ln;
+}
+
+__device__ __forceinline__ bool has_rank(const int (&mask)[WA], int r) {
+  return (static_cast<uint32_t>(mask[r >> 5]) >> (r & 31)) & 1u;
+}
+#endif
+
 // -- the message handlers of Receive(m) (raft.tla:284-436) -----------------
 
 // Returns whether a branch was enabled; sets *ovf for the taken branch.
@@ -261,8 +386,14 @@ __device__ __forceinline__ bool receive(St& s, int slot, bool* ovf) {
     const int voted_i = rd(s.voted, i);
     const bool grant =
         mt == ct && log_ok && (voted_i == 0 || voted_i == j + 1);
+#if RT_E > 0
+    const int mlog = log_rank(s, i);  // the voter's log (raft.tla:297-299)
+#else
+    const int mlog = 0;
+#endif
     if (grant) wr(s.voted, i, j + 1);
-    *ovf = reply(s, pack_hi(M_RVRESP, ct, grant, 0, i, j), 0, hi, lo);
+    *ovf = reply(s, pack_hi(M_RVRESP, ct, grant, 0, i, j),
+                 pack_lo(0, 0, 0, 0, mlog), hi, lo);
     return true;
   }
   if (mty == M_RVRESP && mt < ct) {  // DropStaleResponse (raft.tla:415-418)
@@ -273,6 +404,10 @@ __device__ __forceinline__ bool receive(St& s, int slot, bool* ovf) {
     const int bit = shl(1, j);
     wr(s.vresp, i, rd(s.vresp, i) | bit);
     if (fa(hi) > 0) wr(s.vgrant, i, rd(s.vgrant, i) | bit);
+#if RT_E > 0
+    // voterLog[i] @@ (j :> m.mlog): the existing entry wins (:316-317)
+    if (fa(hi) > 0 && rd2(s.vlog, i, j) == 0) wr2(s.vlog, i, j, fg(lo) + 1);
+#endif
     bag_remove(s, hi, lo);
     return true;
   }
@@ -333,6 +468,42 @@ __device__ __forceinline__ bool receive(St& s, int slot, bool* ovf) {
   return false;
 }
 
+#if RT_E > 0
+// BecomeLeader's record into the elections set (raft.tla:237-242), all from
+// the unprimed state: the first free slot (eTerm = 0) unless an equal
+// record is present.  Returns the overflow flag (no free slot).
+__device__ __forceinline__ bool elections_insert(St& s, int i) {
+  const int r = clampi(i, N);
+  const int lid = log_rank(s, i), ti = s.term[r], vg = s.vgrant[r];
+  bool exists = false, has_empty = false;
+#pragma unroll
+  for (int e = 0; e < E; ++e) {
+    const bool occ = s.eterm[e] > 0;
+    bool match = occ && s.eterm[e] == ti && s.eleader[e] == i &&
+                 s.elog[e] == lid && s.evotes[e] == vg;
+#pragma unroll
+    for (int m = 0; m < N; ++m) match &= s.evlog[e][m] == s.vlog[r][m];
+    exists |= match;
+    has_empty |= !occ;
+  }
+  bool seen_empty = false;
+#pragma unroll
+  for (int e = 0; e < E; ++e) {
+    const bool empty = !(s.eterm[e] > 0);
+    if (!exists && empty && !seen_empty) {
+      s.eterm[e] = ti;
+      s.eleader[e] = i;
+      s.elog[e] = lid;
+      s.evotes[e] = vg;
+#pragma unroll
+      for (int m = 0; m < N; ++m) s.evlog[e][m] = s.vlog[r][m];
+    }
+    seen_empty |= empty;
+  }
+  return !exists && !has_empty;
+}
+#endif
+
 // -- the action families (raft.tla:167-276, 421-450) -----------------------
 
 // Applies lane (fam, i, j, v, slot) to s in place; returns `valid` and sets
@@ -348,6 +519,9 @@ __device__ __forceinline__ bool apply(St& s, int fam, int i, int j, int v,
       wr_row(s.next, i, 1);
       wr_row(s.match, i, 0);
       wr(s.commit, i, 0);
+#if RT_E > 0
+      wr_row(s.vlog, i, 0);  // voterLog[i] := empty map (raft.tla:171)
+#endif
       valid = true;
       break;
     case TIMEOUT: {
@@ -358,6 +532,9 @@ __device__ __forceinline__ bool apply(St& s, int fam, int i, int j, int v,
       wr(s.voted, i, 0);
       wr(s.vresp, i, 0);
       wr(s.vgrant, i, 0);
+#if RT_E > 0
+      wr_row(s.vlog, i, 0);  // voterLog[i] := empty map (raft.tla:186)
+#endif
       break;
     }
     case REQUESTVOTE: {
@@ -375,6 +552,9 @@ __device__ __forceinline__ bool apply(St& s, int fam, int i, int j, int v,
       wr(s.role, i, LEADER);
       wr_row(s.next, i, ln + 1);
       wr_row(s.match, i, 0);
+#if RT_E > 0
+      o = elections_insert(s, i);
+#endif
       break;
     }
     case CLIENTREQUEST: {
@@ -415,8 +595,13 @@ __device__ __forceinline__ bool apply(St& s, int fam, int i, int j, int v,
       const int ent_term = has_ent ? rd2(s.logterm, i, ni - 1) : 0;
       const int ent_val = has_ent ? rd2(s.logval, i, ni - 1) : 0;
       const int hi = pack_hi(M_AEREQ, rd(s.term, i), prev_idx, prev_term, i, j);
+#if RT_E > 0
+      const int mlog = log_rank(s, i);  // the leader's log (raft.tla:220-222)
+#else
+      const int mlog = 0;
+#endif
       const int lo = pack_lo(has_ent, ent_term, ent_val,
-                             min(rd(s.commit, i), last_entry));
+                             min(rd(s.commit, i), last_entry), mlog);
       o = bag_add(s, hi, lo);
       break;
     }
@@ -474,8 +659,47 @@ __device__ __forceinline__ void sort_bag(int (&hi)[S], int (&lo)[S],
     }
 }
 
+#if RT_E > 0
+// Election slots into canonical order (ops/state.canonicalize): occupied
+// (eTerm > 0) first, then (eTerm, eLeader, eLog, eVotes, eVLog columns),
+// the same odd-even network over E slots.
+__device__ __forceinline__ void sort_elections(int (&et)[E], int (&el)[E],
+                                               int (&eg)[E], int (&ev)[E],
+                                               int (&evl)[E][N]) {
+#pragma unroll
+  for (int r = 0; r < E; ++r)
+#pragma unroll
+    for (int a = r % 2; a < E - 1; a += 2) {
+      const int b = a + 1;
+      bool le = true;  // key[a] <= key[b], least significant word first
+#pragma unroll
+      for (int m = N - 1; m >= 0; --m)
+        le = evl[a][m] < evl[b][m] || (evl[a][m] == evl[b][m] && le);
+      le = ev[a] < ev[b] || (ev[a] == ev[b] && le);
+      le = eg[a] < eg[b] || (eg[a] == eg[b] && le);
+      le = el[a] < el[b] || (el[a] == el[b] && le);
+      le = et[a] < et[b] || (et[a] == et[b] && le);
+      const int oa = et[a] > 0 ? 0 : 1, ob = et[b] > 0 ? 0 : 1;
+      le = oa < ob || (oa == ob && le);
+      if (!le) {
+        int t = et[a]; et[a] = et[b]; et[b] = t;
+        t = el[a]; el[a] = el[b]; el[b] = t;
+        t = eg[a]; eg[a] = eg[b]; eg[b] = t;
+        t = ev[a]; ev[a] = ev[b]; ev[b] = t;
+#pragma unroll
+        for (int m = 0; m < N; ++m) {
+          t = evl[a][m]; evl[a][m] = evl[b][m]; evl[b][m] = t;
+        }
+      }
+    }
+}
+#endif
+
 __device__ __forceinline__ void canonicalize(St& s) {
   sort_bag(s.mhi, s.mlo, s.mcnt);
+#if RT_E > 0
+  sort_elections(s.eterm, s.eleader, s.elog, s.evotes, s.evlog);
+#endif
 }
 
 // -- invariants (models/invariants.py) and the StateConstraint --------------
@@ -538,6 +762,50 @@ __device__ __forceinline__ bool invariant(const St& s, int code) {
           }
       return ok;
     }
+#if RT_E > 0
+    case INV_ELECTION_SAFETY_HIST: {  // one leader ever elected per term
+      bool ok = true;
+#pragma unroll
+      for (int a = 0; a < E; ++a)
+#pragma unroll
+        for (int b = 0; b < E; ++b)
+          ok &= !(s.eterm[a] > 0 && s.eterm[b] > 0 &&
+                  s.eterm[a] == s.eterm[b] && s.eleader[a] != s.eleader[b]);
+      return ok;
+    }
+    case INV_LEADER_COMPLETENESS_HIST: {  // committed entries in every later
+      bool ok = true;                     // election's elog
+#pragma unroll 1
+      for (int e = 0; e < E; ++e) {
+        int et[L], ev[L], eln;
+        decode_log(s.elog[e], et, ev, &eln);
+#pragma unroll
+        for (int j = 0; j < N; ++j)
+#pragma unroll
+          for (int k = 0; k < L; ++k) {
+            const bool must =
+                s.eterm[e] > 0 && s.eterm[e] > s.term[j] && k < s.commit[j];
+            const bool has = k < eln && et[k] == s.logterm[j][k] &&
+                             ev[k] == s.logval[j][k];
+            ok &= !(must && !has);
+          }
+      }
+      return ok;
+    }
+    case INV_ALL_LOGS_PREFIX_CLOSED: {  // every recorded log's prefix too
+#pragma unroll 1
+      for (int w = 0; w < WA; ++w) {
+        uint32_t bits = static_cast<uint32_t>(s.alllogs[w]);
+        while (bits) {
+          const int r = 32 * w + __ffs(bits) - 1;
+          bits &= bits - 1;
+          if (r >= 1 && r < U && !has_rank(s.alllogs, prefix_rank(r)))
+            return false;
+        }
+      }
+      return true;
+    }
+#endif
     default:
       return false;
   }
@@ -586,6 +854,23 @@ __device__ __forceinline__ void unpack(const int* v, St& s) {
     s.mlo[k] = v[O_MLO + k];
     s.mcnt[k] = v[O_MCNT + k];
   }
+#if RT_E > 0
+#pragma unroll
+  for (int w = 0; w < WA; ++w) s.alllogs[w] = v[O_ALLLOGS + w];
+#pragma unroll
+  for (int a = 0; a < N; ++a)
+#pragma unroll
+    for (int b = 0; b < N; ++b) s.vlog[a][b] = v[O_VLOG + a * N + b];
+#pragma unroll
+  for (int e = 0; e < E; ++e) {
+    s.eterm[e] = v[O_ETERM + e];
+    s.eleader[e] = v[O_ELEADER + e];
+    s.elog[e] = v[O_ELOG + e];
+    s.evotes[e] = v[O_EVOTES + e];
+#pragma unroll
+    for (int m = 0; m < N; ++m) s.evlog[e][m] = v[O_EVLOG + e * N + m];
+  }
+#endif
 }
 
 // Writes the packed successor (ops/state.STATE_FIELDS order).
@@ -616,6 +901,23 @@ __device__ __forceinline__ void pack(const St& s, int* out) {
     out[O_MLO + k] = s.mlo[k];
     out[O_MCNT + k] = s.mcnt[k];
   }
+#if RT_E > 0
+#pragma unroll
+  for (int w = 0; w < WA; ++w) out[O_ALLLOGS + w] = s.alllogs[w];
+#pragma unroll
+  for (int a = 0; a < N; ++a)
+#pragma unroll
+    for (int b = 0; b < N; ++b) out[O_VLOG + a * N + b] = s.vlog[a][b];
+#pragma unroll
+  for (int e = 0; e < E; ++e) {
+    out[O_ETERM + e] = s.eterm[e];
+    out[O_ELEADER + e] = s.eleader[e];
+    out[O_ELOG + e] = s.elog[e];
+    out[O_EVOTES + e] = s.evotes[e];
+#pragma unroll
+    for (int m = 0; m < N; ++m) out[O_EVLOG + e * N + m] = s.evlog[e][m];
+  }
+#endif
 }
 
 // -- the dedup key: VIEW and the orbit-minimal fingerprint ------------------
@@ -629,10 +931,11 @@ __device__ __forceinline__ void pack(const St& s, int* out) {
 // table gathers clamp them.
 
 struct Group {
-  const int8_t* perm;  // P rows of (p[N], inv[N])
-  const int8_t* vals;  // Q rows of q[nv]
-  int P, Q, nv;        // nv = 0: no value permutation
-  int view;            // models/views.KERNEL_CODES
+  const int8_t* perm;     // P rows of (p[N], inv[N])
+  const int8_t* vals;     // Q rows of q[nv]
+  const int16_t* rmaps;   // faithful mode with nv > 0: Q rows of rank maps
+  int P, Q, nv;           // nv = 0: no value permutation
+  int view;               // models/views.KERNEL_CODES
 };
 
 constexpr int kHiKeep = ~((15 << 21) | (15 << 25));  // msgbits src, dst
@@ -648,6 +951,85 @@ __device__ __forceinline__ int relabel_value(const int8_t* q, int nv, int v) {
   const int c = v < 0 ? 0 : (v > nv ? nv : v);
   return c == 0 ? 0 : q[c - 1] + 1;
 }
+
+#if RT_E > 0
+constexpr int kGMask = (1 << 14) - 1;  // msgbits g
+
+// rank -> rank of the value-permuted log (rmap clamped, as the plain
+// version's table gathers clamp), and the same in the rank+1 form.
+__device__ __forceinline__ int map_rank(const int16_t* rm, int r) {
+  return rm ? __ldg(rm + (r < 0 ? 0 : (r > U - 1 ? U - 1 : r))) : r;
+}
+__device__ __forceinline__ int map_rank1(const int16_t* rm, int x) {
+  if (!rm) return x;
+  const int c = x < 0 ? 0 : (x > U ? U : x);
+  return c == 0 ? 0 : __ldg(rm + c - 1) + 1;
+}
+
+// Folds the history fields of g(s) into acc: server permutation (p, inv)
+// then the value permutation's rank map rm (null: identity); the election
+// slots are remapped into registers and re-sorted.
+__device__ __forceinline__ void history_key(const St& s, const int (&p)[N],
+                                            const int (&inv)[N],
+                                            const int16_t* rm,
+                                            const uint32_t* c1,
+                                            const uint32_t* c2, RtFp& acc) {
+#pragma unroll
+  for (int k = 0; k < N; ++k)
+#pragma unroll
+    for (int m = 0; m < N; ++m)
+      mac(acc, c1, c2, O_VLOG + k * N + m,
+          map_rank1(rm, s.vlog[inv[k]][inv[m]]));
+  if (rm) {  // allLogs: bit r moves to bit rm[r]
+    int mask[WA];
+#pragma unroll
+    for (int w = 0; w < WA; ++w) mask[w] = 0;
+#pragma unroll 1
+    for (int w = 0; w < WA; ++w) {
+      uint32_t bits = static_cast<uint32_t>(s.alllogs[w]);
+      while (bits) {
+        const int r = 32 * w + __ffs(bits) - 1;
+        bits &= bits - 1;
+        if (r < U) {
+          const int t = __ldg(rm + r);
+          mask[t >> 5] |= shl(1, t & 31);
+        }
+      }
+    }
+#pragma unroll
+    for (int w = 0; w < WA; ++w) mac(acc, c1, c2, O_ALLLOGS + w, mask[w]);
+  } else {
+#pragma unroll
+    for (int w = 0; w < WA; ++w) mac(acc, c1, c2, O_ALLLOGS + w, s.alllogs[w]);
+  }
+  int et[E], el[E], eg[E], ev[E], evl[E][N];
+#pragma unroll
+  for (int e = 0; e < E; ++e) {
+    const bool occ = s.eterm[e] > 0;
+    et[e] = s.eterm[e];
+    const int ld = s.eleader[e] < 0 ? 0 : (s.eleader[e] > 15 ? 15
+                                                             : s.eleader[e]);
+    el[e] = occ ? (ld < N ? p[ld] : 0) : s.eleader[e];
+    eg[e] = map_rank(rm, s.elog[e]);
+    int pv = 0;
+#pragma unroll
+    for (int j = 0; j < N; ++j) pv |= ((s.evotes[e] >> j) & 1) << p[j];
+    ev[e] = occ ? pv : s.evotes[e];
+#pragma unroll
+    for (int m = 0; m < N; ++m) evl[e][m] = map_rank1(rm, s.evlog[e][inv[m]]);
+  }
+  sort_elections(et, el, eg, ev, evl);
+#pragma unroll
+  for (int e = 0; e < E; ++e) {
+    mac(acc, c1, c2, O_ETERM + e, et[e]);
+    mac(acc, c1, c2, O_ELEADER + e, el[e]);
+    mac(acc, c1, c2, O_ELOG + e, eg[e]);
+    mac(acc, c1, c2, O_EVOTES + e, ev[e]);
+#pragma unroll
+    for (int m = 0; m < N; ++m) mac(acc, c1, c2, O_EVLOG + e * N + m, evl[e][m]);
+  }
+}
+#endif
 
 __device__ void orbit_key(const St& s, const Group& g, const uint32_t* c1,
                           const uint32_t* c2, int* key_hi, int* key_lo) {
@@ -715,6 +1097,10 @@ __device__ void orbit_key(const St& s, const Group& g, const uint32_t* c1,
           mac(acc, c1, c2, O_LOGVAL + k * L + l,
               g.nv ? relabel_value(q, g.nv, v) : v);
         }
+#if RT_E > 0
+      // The value permutation's rank map (none: the identity).
+      const int16_t* rm = g.nv ? g.rmaps + qi * U : nullptr;
+#endif
       int mh[S], ml[S], mc[S];
 #pragma unroll
       for (int k = 0; k < S; ++k) {
@@ -723,7 +1109,14 @@ __device__ void orbit_key(const St& s, const Group& g, const uint32_t* c1,
         const int lo = s.mlo[k];
         const int e = (lo >> 7) & 15;
         const int ne = e >= 1 && e <= g.nv ? q[e - 1] + 1 : 0;
-        ml[k] = g.nv && mc[k] > 0 ? (lo & kLoKeepE) | shl(ne, 7) : lo;
+        int nlo = (lo & kLoKeepE) | shl(ne, 7);
+#if RT_E > 0
+        if (rm) {  // mlog, the g field
+          const int gr = (lo >> 17) & kGMask;
+          nlo = (nlo & ~(kGMask << 17)) | shl(gr < U ? __ldg(rm + gr) : 0, 17);
+        }
+#endif
+        ml[k] = g.nv && mc[k] > 0 ? nlo : lo;
       }
       sort_bag(mh, ml, mc);
 #pragma unroll
@@ -732,6 +1125,9 @@ __device__ void orbit_key(const St& s, const Group& g, const uint32_t* c1,
         mac(acc, c1, c2, O_MLO + k, ml[k]);
         mac(acc, c1, c2, O_MCNT + k, mc[k]);
       }
+#if RT_E > 0
+      history_key(s, p, inv, rm, c1, c2, acc);
+#endif
       const uint32_t h = rt_fmix32(acc.s1 + RT_LANE_SEED_HI);
       const uint32_t l = rt_fmix32(acc.s2 + RT_LANE_SEED_LO);
       if (first || h < bh || (h == bh && l < bl)) {
@@ -751,7 +1147,8 @@ __global__ void __launch_bounds__(kThreads)
                 const uint32_t* __restrict__ c1g,
                 const uint32_t* __restrict__ c2g,
                 const int8_t* __restrict__ groupg, int P, int Q, int nv,
-                int view, InvList inv, Limits lim, int* __restrict__ svecs,
+                const int16_t* __restrict__ rmaps, int view, InvList inv,
+                Limits lim, int* __restrict__ svecs,
                 uint8_t* __restrict__ valid_out, uint8_t* __restrict__ ovf_out,
                 int* __restrict__ fp_hi, int* __restrict__ fp_lo,
                 uint8_t* __restrict__ inv_out, uint8_t* __restrict__ con_out) {
@@ -778,6 +1175,19 @@ __global__ void __launch_bounds__(kThreads)
 
   St s;
   unpack(sm + r * W, s);
+#if RT_E > 0
+  // allLogs' = allLogs \cup {log[i] : i \in Server} with the parent's logs.
+  int alllogs[WA];
+#pragma unroll
+  for (int w = 0; w < WA; ++w) alllogs[w] = s.alllogs[w];
+#pragma unroll
+  for (int i = 0; i < N; ++i) {
+    const int rk = log_rank(s, i);
+#pragma unroll
+    for (int w = 0; w < WA; ++w)
+      if (w == rk >> 5) alllogs[w] |= shl(1, rk & 31);
+  }
+#endif
   bool ovf;
   const bool valid = apply(s, act[0], act[1], act[2], act[3], act[4], &ovf);
   valid_out[lane] = valid;
@@ -791,9 +1201,13 @@ __global__ void __launch_bounds__(kThreads)
     con_out[lane] = 0;
     return;
   }
+#if RT_E > 0
+#pragma unroll
+  for (int w = 0; w < WA; ++w) s.alllogs[w] = alllogs[w];
+#endif
   canonicalize(s);
   pack(s, out);
-  const Group g{group, group + P * 2 * N, P, Q, nv, view};
+  const Group g{group, group + P * 2 * N, rmaps, P, Q, nv, view};
   orbit_key(s, g, c1, c2, fp_hi + lane, fp_lo + lane);
   for (int k = 0; k < inv.n; ++k)
     inv_out[lane * inv.n + k] = invariant(s, inv.code[k]);
@@ -806,11 +1220,14 @@ extern "C" int rt_step_width() { return W; }
 
 // `group`: P rows of (p[N], inv[N]) then Q rows of q[nv], int8, on the
 // device (ops/symmetry.kernel_tables); nv = 0 when Value symmetry is off
-// (then Q = 1 and no value row is read).
+// (then Q = 1 and no value row is read).  `rmaps`: in a faithful layout
+// with nv > 0, Q rows of U int16 rank maps on the device
+// (ops/symmetry.kernel_rank_maps); otherwise unused and may be null.
 extern "C" int rt_step_launch(const int* vecs, int B, const int* table, int A,
                               const uint32_t* c1, const uint32_t* c2,
                               const int8_t* group, int P, int Q, int nv,
-                              int view, const int* inv_codes, int n_inv,
+                              const int16_t* rmaps, int view,
+                              const int* inv_codes, int n_inv,
                               int max_term, int max_log, int max_msgs,
                               int max_dup, int* svecs, uint8_t* valid,
                               uint8_t* ovf, int* fp_hi, int* fp_lo,
@@ -818,6 +1235,9 @@ extern "C" int rt_step_launch(const int* vecs, int B, const int* table, int A,
   if (n_inv < 0 || n_inv > kMaxInv || A < 1 || A > kThreads || P < 1 ||
       Q < 1 || nv < 0 || nv > kMaxValues || (nv == 0 && Q != 1))
     return static_cast<int>(cudaErrorInvalidValue);
+#if RT_E > 0
+  if (nv > 0 && rmaps == nullptr) return static_cast<int>(cudaErrorInvalidValue);
+#endif
   if (B <= 0) return 0;
   InvList inv{};
   inv.n = n_inv;
@@ -832,7 +1252,8 @@ extern "C" int rt_step_launch(const int* vecs, int B, const int* table, int A,
       static_cast<int>(smem));
   if (err != cudaSuccess) return static_cast<int>(err);
   step_kernel<<<blocks, R * A, smem, static_cast<cudaStream_t>(stream)>>>(
-      vecs, B, R, table, A, c1, c2, group, P, Q, nv, view, inv, lim, svecs,
+      vecs, B, R, table, A, c1, c2, group, P, Q, nv, rmaps, view, inv, lim,
+      svecs,
       valid, ovf, fp_hi, fp_lo, inv_ok, con_ok);
   return static_cast<int>(cudaGetLastError());
 }

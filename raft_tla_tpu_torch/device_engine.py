@@ -34,6 +34,11 @@ chunks and (on the card) the device time of the dedup inserts.
 
 Results do not depend on ``chunk``: a key's winner is the smallest flat
 index, and chunks walk rows in order.
+
+In faithful mode (``Bounds.history``) the rows are the faithful layout's
+(the history fields after the parity ones, ops/state.py), and a successor
+that finds the election slots full is the step's overflow: the search
+stops with ``FAIL_WIDTH``, as the reference's does, never a clamp.
 """
 
 from __future__ import annotations

@@ -4,8 +4,23 @@ A deliberately straight-line, un-optimized Python reading of the spec's
 guards and effects (``raft.tla:99-465``) over hashable states.  The plain
 torch step and the CUDA step are held against it through the JAX reference
 in the tests, and the engine uses it for the initial state, trace rendering
-and trace replay.  Parity mode only: the proof-only history variables are
-stripped, as in the reference's default mode.
+and trace replay.
+
+Parity mode (default): the proof-only history variables — ``elections``
+(raft.tla:39), ``allLogs`` (raft.tla:44), ``voterLog`` (raft.tla:77) and the
+``mlog`` message fields (raft.tla:220-222, 297-299) — are stripped.  No guard
+reads them, so the transition behaviour is unchanged; only state identity
+coarsens.
+
+Faithful mode (``Bounds.history``): the history variables are carried as
+real state, as stock TLC fingerprints them on the unmodified spec —
+``allLogs' = allLogs \\cup {log[i] : i \\in Server}`` conjoined (with the
+*unprimed* logs) onto every step (raft.tla:464-465), ``voterLog`` rows
+cleared by Restart/Timeout (raft.tla:171,186) and extended by granted vote
+responses via ``@@`` (keep-existing, raft.tla:316-317), ``elections``
+accumulated by BecomeLeader (raft.tla:237-242), and ``mlog`` carried in
+RequestVoteResponse/AppendEntriesRequest records as log-universe ranks
+(ops/loguniv.py).
 
 Messages use the same packed (hi, lo) content words as the tensor encoding
 (ops/msgbits.py), so slot ordering, bag equality and packing agree with the
@@ -15,6 +30,7 @@ kernels by construction.
 from __future__ import annotations
 
 import dataclasses
+import functools as _functools
 from typing import Iterator, Optional
 
 import numpy as np
@@ -27,7 +43,7 @@ from raft_tla_tpu_torch.ops import state as st
 
 @dataclasses.dataclass(frozen=True)
 class PyState:
-    """One state of the parity-mode spec; all fields hashable tuples.
+    """One state of the (parity-mode) spec; all fields hashable tuples.
 
     ``log`` is a tuple per server of (term, value) pairs (``raft.tla:61``);
     ``vResp``/``vGrant`` are bitmask ints over servers (``raft.tla:69,72``);
@@ -45,6 +61,10 @@ class PyState:
     nextIndex: tuple     # per server: tuple[int, ...]
     matchIndex: tuple
     msgs: tuple          # sorted tuple[((hi, lo), count), ...]
+    # Faithful mode only (None in parity mode):
+    allLogs: tuple = None    # sorted tuple of logs ever seen (raft.tla:44)
+    vLog: tuple = None       # voterLog[i][j]: log tuple or None (raft.tla:77)
+    elections: tuple = None  # sorted (eterm, eleader, elog, evotes, evoterLog)
 
     def _replace(self, **kw) -> "PyState":
         return dataclasses.replace(self, **kw)
@@ -53,6 +73,10 @@ class PyState:
 def init_state(bounds: Bounds) -> PyState:
     """``Init`` (raft.tla:155-160): the unique initial state."""
     n = bounds.n_servers
+    hist = {}
+    if bounds.history:
+        # InitHistoryVars (raft.tla:140-142): empty set, empty set, empty maps.
+        hist = dict(allLogs=(), vLog=((None,) * n,) * n, elections=())
     return PyState(
         role=(S.FOLLOWER,) * n,
         term=(1,) * n,                      # InitServerVars, raft.tla:143
@@ -64,6 +88,7 @@ def init_state(bounds: Bounds) -> PyState:
         nextIndex=((1,) * n,) * n,          # InitLeaderVars, raft.tla:151-152
         matchIndex=((0,) * n,) * n,
         msgs=(),                            # raft.tla:155
+        **hist,
     )
 
 
@@ -101,6 +126,34 @@ def _upd(t: tuple, i: int, v) -> tuple:
     return t[:i] + (v,) + t[i + 1:]
 
 
+# -- faithful-mode helpers (history variables) -------------------------------
+
+def _log_key(log: tuple) -> tuple:
+    """Sort key matching log-universe rank order (ops/loguniv.py): by
+    length, then lexicographically by entries — entry codes are
+    lex-increasing in (term, value), so plain tuple comparison agrees."""
+    return (len(log), log)
+
+
+def _opt_log_key(log) -> tuple:
+    """Key matching rank+1 order (0 = absent sorts first)."""
+    return (0,) if log is None else (1,) + _log_key(log)
+
+
+def _election_key(rec: tuple) -> tuple:
+    """Canonical election-slot order: must match ops/state.canonicalize."""
+    eterm, eleader, elog, evotes, evlog = rec
+    return (eterm, eleader, _log_key(elog), evotes,
+            tuple(_opt_log_key(l) for l in evlog))
+
+
+def _clear_vlog_row(s: "PyState", i: int, n: int) -> dict:
+    """``voterLog' = [voterLog EXCEPT ![i] = empty map]`` (raft.tla:171,186)."""
+    if s.vLog is None:
+        return {}
+    return {"vLog": _upd(s.vLog, i, (None,) * n)}
+
+
 # -- actions (raft.tla:167-276); return None when the guard is disabled ------
 
 def restart(s: PyState, i: int, n: int) -> PyState:
@@ -116,6 +169,7 @@ def restart(s: PyState, i: int, n: int) -> PyState:
         nextIndex=_upd(s.nextIndex, i, (1,) * n),
         matchIndex=_upd(s.matchIndex, i, (0,) * n),
         commitIndex=_upd(s.commitIndex, i, 0),
+        **_clear_vlog_row(s, i, n),
     )
 
 
@@ -133,6 +187,7 @@ def timeout(s: PyState, i: int) -> Optional[PyState]:
         votedFor=_upd(s.votedFor, i, S.NIL),
         vResp=_upd(s.vResp, i, 0),
         vGrant=_upd(s.vGrant, i, 0),
+        **_clear_vlog_row(s, i, len(s.role)),
     )
 
 
@@ -144,11 +199,13 @@ def request_vote(s: PyState, i: int, j: int) -> Optional[PyState]:
     return s._replace(msgs=with_message(m, s.msgs))
 
 
-def append_entries(s: PyState, i: int, j: int) -> Optional[PyState]:
+def append_entries(s: PyState, i: int, j: int, uni=None) -> Optional[PyState]:
     """``AppendEntries(i, j)`` (raft.tla:204-226): <=1 entry from nextIndex.
 
     Also the heartbeat (empty ``mentries`` when nextIndex is past the log);
     piggybacks ``mcommitIndex = Min(commitIndex[i], lastEntry)`` (raft.tla:223).
+    In faithful mode the record carries ``mlog = log[i]`` as a universe rank
+    (raft.tla:220-222).
     """
     if i == j or s.role[i] != S.LEADER:
         return None
@@ -161,19 +218,31 @@ def append_entries(s: PyState, i: int, j: int) -> Optional[PyState]:
         n_ent, ent_term, ent_val = 1, log_i[ni - 1][0], log_i[ni - 1][1]
     else:
         n_ent, ent_term, ent_val = 0, 0, 0
+    mlog = uni.id_of_tuple(log_i) if uni is not None else 0
     m = mb.ae_request(s.term[i], prev_idx, prev_term, n_ent, ent_term, ent_val,
-                      min(s.commitIndex[i], last_entry), i, j)
+                      min(s.commitIndex[i], last_entry), i, j, mlog)
     return s._replace(msgs=with_message(m, s.msgs))
 
 
 def become_leader(s: PyState, i: int, n: int) -> Optional[PyState]:
-    """``BecomeLeader(i)`` (raft.tla:229-243)."""
+    """``BecomeLeader(i)`` (raft.tla:229-243).
+
+    In faithful mode also records the election into the ``elections``
+    history set (raft.tla:237-242): [eterm, eleader, elog, evotes,
+    evoterLog], all from the unprimed state.
+    """
     if s.role[i] != S.CANDIDATE or not quorum(s.vGrant[i], n):
         return None
+    hist = {}
+    if s.elections is not None:
+        rec = (s.term[i], i, s.log[i], s.vGrant[i], s.vLog[i])
+        recs = set(s.elections) | {rec}
+        hist = {"elections": tuple(sorted(recs, key=_election_key))}
     return s._replace(
         role=_upd(s.role, i, S.LEADER),
         nextIndex=_upd(s.nextIndex, i, (len(s.log[i]) + 1,) * n),
         matchIndex=_upd(s.matchIndex, i, (0,) * n),
+        **hist,
     )
 
 
@@ -207,7 +276,7 @@ def advance_commit_index(s: PyState, i: int, n: int) -> Optional[PyState]:
 
 # -- message handlers (raft.tla:284-418), dispatched by receive --------------
 
-def _handle_request_vote_request(s, i, j, m_hi, m_lo):
+def _handle_request_vote_request(s, i, j, m_hi, m_lo, uni=None):
     """``HandleRequestVoteRequest`` (raft.tla:284-303), mterm <= currentTerm."""
     mt = mb.mterm(m_hi)
     log_ok = (mb.fa(m_hi) > last_term(s.log[i])
@@ -215,7 +284,8 @@ def _handle_request_vote_request(s, i, j, m_hi, m_lo):
                   and mb.fb(m_hi) >= len(s.log[i])))       # raft.tla:285-287
     grant = (mt == s.term[i] and log_ok
              and s.votedFor[i] in (S.NIL, j + 1))           # raft.tla:288-290
-    resp = mb.rv_response(s.term[i], int(grant), i, j)
+    mlog = uni.id_of_tuple(s.log[i]) if uni is not None else 0
+    resp = mb.rv_response(s.term[i], int(grant), i, j, mlog)  # mlog :297-299
     msgs = without_message((m_hi, m_lo), with_message(resp, s.msgs))  # Reply :129-130
     out = s._replace(msgs=msgs)
     if grant:
@@ -223,14 +293,20 @@ def _handle_request_vote_request(s, i, j, m_hi, m_lo):
     return out
 
 
-def _handle_request_vote_response(s, i, j, m_hi, m_lo):
+def _handle_request_vote_response(s, i, j, m_hi, m_lo, uni=None):
     """``HandleRequestVoteResponse`` (raft.tla:307-321), mterm = currentTerm.
 
     Tallies even when i is not a Candidate (harmless, raft.tla:308-309).
+    In faithful mode a granted vote extends ``voterLog[i]`` with
+    ``j :> m.mlog`` via ``@@`` — the *existing* entry wins on a duplicated
+    response (raft.tla:316-317).
     """
     out = s._replace(vResp=_upd(s.vResp, i, s.vResp[i] | (1 << j)))
     if mb.fa(m_hi):                                          # mvoteGranted
         out = out._replace(vGrant=_upd(out.vGrant, i, out.vGrant[i] | (1 << j)))
+        if uni is not None and s.vLog[i][j] is None:
+            row = _upd(s.vLog[i], j, uni.tuple_of_id(mb.fg(m_lo)))
+            out = out._replace(vLog=_upd(s.vLog, i, row))
     return out._replace(msgs=without_message((m_hi, m_lo), s.msgs))
 
 
@@ -296,7 +372,7 @@ def _handle_append_entries_response(s, i, j, m_hi, m_lo):
     return out._replace(msgs=without_message((m_hi, m_lo), s.msgs))
 
 
-def receive(s: PyState, slot: int) -> Optional[PyState]:
+def receive(s: PyState, slot: int, uni=None) -> Optional[PyState]:
     """``Receive(m)`` (raft.tla:421-436) on the slot-th canonical bag element.
 
     The guards partition on mterm vs currentTerm[i] (>, =, <), so dispatch is
@@ -315,11 +391,11 @@ def receive(s: PyState, slot: int) -> Optional[PyState]:
                           role=_upd(s.role, i, S.FOLLOWER),
                           votedFor=_upd(s.votedFor, i, S.NIL))
     if mty == S.M_RVREQ:
-        return _handle_request_vote_request(s, i, j, m_hi, m_lo)
+        return _handle_request_vote_request(s, i, j, m_hi, m_lo, uni)
     if mty == S.M_RVRESP:
         if mt < s.term[i]:  # DropStaleResponse (raft.tla:415-418)
             return s._replace(msgs=without_message((m_hi, m_lo), s.msgs))
-        return _handle_request_vote_response(s, i, j, m_hi, m_lo)
+        return _handle_request_vote_response(s, i, j, m_hi, m_lo, uni)
     if mty == S.M_AEREQ:
         return _handle_append_entries_request(s, i, j, m_hi, m_lo)
     if mty == S.M_AERESP:
@@ -345,30 +421,44 @@ def drop_message(s: PyState, slot: int) -> Optional[PyState]:
 
 # -- successor enumeration (Next, raft.tla:454-465) --------------------------
 
+@_functools.lru_cache(maxsize=None)
+def _uni(bounds: Bounds):
+    from raft_tla_tpu_torch.ops.loguniv import LogUniverse
+    return LogUniverse.of(bounds)
+
+
 def apply_action(s: PyState, a: S.ActionInstance, bounds: Bounds
                  ) -> Optional[PyState]:
     n = bounds.n_servers
+    uni = _uni(bounds) if bounds.history else None
     if a.family == S.RESTART:
-        return restart(s, a.i, n)
-    if a.family == S.TIMEOUT:
-        return timeout(s, a.i)
-    if a.family == S.REQUESTVOTE:
-        return request_vote(s, a.i, a.j)
-    if a.family == S.BECOMELEADER:
-        return become_leader(s, a.i, n)
-    if a.family == S.CLIENTREQUEST:
-        return client_request(s, a.i, a.v)
-    if a.family == S.ADVANCECOMMIT:
-        return advance_commit_index(s, a.i, n)
-    if a.family == S.APPENDENTRIES:
-        return append_entries(s, a.i, a.j)
-    if a.family == S.RECEIVE:
-        return receive(s, a.slot)
-    if a.family == S.DUPLICATE:
-        return duplicate_message(s, a.slot)
-    if a.family == S.DROP:
-        return drop_message(s, a.slot)
-    raise AssertionError(a.family)
+        out = restart(s, a.i, n)
+    elif a.family == S.TIMEOUT:
+        out = timeout(s, a.i)
+    elif a.family == S.REQUESTVOTE:
+        out = request_vote(s, a.i, a.j)
+    elif a.family == S.BECOMELEADER:
+        out = become_leader(s, a.i, n)
+    elif a.family == S.CLIENTREQUEST:
+        out = client_request(s, a.i, a.v)
+    elif a.family == S.ADVANCECOMMIT:
+        out = advance_commit_index(s, a.i, n)
+    elif a.family == S.APPENDENTRIES:
+        out = append_entries(s, a.i, a.j, uni)
+    elif a.family == S.RECEIVE:
+        out = receive(s, a.slot, uni)
+    elif a.family == S.DUPLICATE:
+        out = duplicate_message(s, a.slot)
+    elif a.family == S.DROP:
+        out = drop_message(s, a.slot)
+    else:
+        raise AssertionError(a.family)
+    if out is not None and bounds.history:
+        # allLogs' = allLogs \cup {log[i] : i \in Server} — conjoined onto
+        # EVERY Next disjunct with the *unprimed* logs (raft.tla:464-465).
+        new = set(s.allLogs) | set(s.log)
+        out = out._replace(allLogs=tuple(sorted(new, key=_log_key)))
+    return out
 
 
 def successors(s: PyState, bounds: Bounds, table=None, spec: str = "full"
@@ -414,6 +504,26 @@ def to_struct(s: PyState, bounds: Bounds) -> dict:
     for k, ((h, l), c) in enumerate(s.msgs):
         hi[k], lo[k], ct[k] = h, l, c
     out["msgHi"], out["msgLo"], out["msgCount"] = hi, lo, ct
+    if bounds.history:
+        uni = _uni(bounds)
+        E = bounds.max_elections
+        mask = np.zeros((lay.Wa,), np.int64)
+        for l in s.allLogs:
+            r = uni.id_of_tuple(l)
+            mask[r // 32] |= 1 << (r % 32)
+        out["allLogs"] = mask.astype(np.uint32).view(np.int32)
+        out["vLog"] = np.asarray(
+            [[0 if l is None else uni.id_of_tuple(l) + 1
+              for l in row] for row in s.vLog], np.int32)
+        if len(s.elections) > E:
+            raise OverflowError(f"elections set exceeds {E} slots")
+        for k, (eterm, eleader, elog, evotes, evlog) in enumerate(s.elections):
+            out["eTerm"][k] = eterm
+            out["eLeader"][k] = eleader
+            out["eLog"][k] = uni.id_of_tuple(elog)
+            out["eVotes"][k] = evotes
+            out["eVLog"][k] = [0 if l is None else uni.id_of_tuple(l) + 1
+                               for l in evlog]
     return out
 
 
@@ -429,7 +539,34 @@ def from_struct(struct: dict, bounds: Bounds) -> PyState:
          int(struct["msgCount"][k]))
         for k in range(len(struct["msgCount"]))
         if int(struct["msgCount"][k]) > 0)
+    hist = {}
+    if bounds.history and "allLogs" in struct:
+        uni = _uni(bounds)
+        logs = []
+        for w, word in enumerate(np.asarray(struct["allLogs"],
+                                            np.int32).view(np.uint32)):
+            word = int(word)
+            for b in range(32):
+                if word & (1 << b):
+                    logs.append(uni.tuple_of_id(32 * w + b))
+        vlog = tuple(
+            tuple(None if int(x) == 0 else uni.tuple_of_id(int(x) - 1)
+                  for x in row) for row in struct["vLog"])
+        recs = []
+        for k in range(len(struct["eTerm"])):
+            if int(struct["eTerm"][k]) == 0:
+                continue
+            recs.append((
+                int(struct["eTerm"][k]), int(struct["eLeader"][k]),
+                uni.tuple_of_id(int(struct["eLog"][k])),
+                int(struct["eVotes"][k]),
+                tuple(None if int(x) == 0 else uni.tuple_of_id(int(x) - 1)
+                      for x in struct["eVLog"][k])))
+        hist = dict(allLogs=tuple(sorted(logs, key=_log_key)),
+                    vLog=vlog,
+                    elections=tuple(sorted(recs, key=_election_key)))
     return PyState(
+        **hist,
         role=tuple(int(x) for x in struct["role"]),
         term=tuple(int(x) for x in struct["term"]),
         votedFor=tuple(int(x) for x in struct["votedFor"]),

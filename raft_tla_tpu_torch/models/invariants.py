@@ -10,8 +10,10 @@ Every invariant has two faces: a Python predicate over
 :class:`~raft_tla_tpu_torch.models.interp.PyState` and a torch predicate over
 a batch of tensor structs (one bool per state, leading dims kept).
 ``csrc/step.cu`` evaluates the same predicates per lane, by the code of
-:data:`CODES`.  Registry names only; expression invariants and the history
-invariants of faithful mode are not ported (ROADMAP.md queue A).
+:data:`CODES`.  The three history invariants (:data:`HISTORY_REGISTRY`)
+read the faithful-mode fields and are accepted only with ``Bounds.history``
+(config.py).  Registry names only; expression invariants are not ported
+(ROADMAP.md queue A).
 """
 
 from __future__ import annotations
@@ -70,6 +72,43 @@ def _py_leader_completeness(s, bounds: Bounds) -> bool:
     return True
 
 
+def _py_election_safety_hist(s, bounds: Bounds) -> bool:
+    """Election Safety over the ``elections`` history set: at most one
+    leader was *ever* elected per term (raft.tla:237-242)."""
+    if s.elections is None:
+        return True
+    terms = {}
+    for (eterm, eleader, _elog, _evotes, _evlog) in s.elections:
+        if terms.setdefault(eterm, eleader) != eleader:
+            return False
+    return True
+
+
+def _py_leader_completeness_hist(s, bounds: Bounds) -> bool:
+    """Leader Completeness over history (the proof's reading): every entry
+    committed now is in the ``elog`` of every recorded election of a later
+    term, including elections whose leader has since crashed or been
+    deposed."""
+    if s.elections is None:
+        return True
+    for j in range(bounds.n_servers):
+        for k in range(s.commitIndex[j]):
+            ent = s.log[j][k]
+            for (eterm, _el, elog, _ev, _evl) in s.elections:
+                if eterm > s.term[j] and (len(elog) <= k or elog[k] != ent):
+                    return False
+    return True
+
+
+def _py_all_logs_prefix_closed(s, bounds: Bounds) -> bool:
+    """``allLogs`` is prefix-closed: logs grow by single appends and every
+    pre-state log is recorded (raft.tla:465)."""
+    if s.allLogs is None:
+        return True
+    seen = set(s.allLogs)
+    return all(l[:-1] in seen for l in s.allLogs if l)
+
+
 # -- torch predicates: struct [..., fields] -> bool [...] -------------------
 
 def _t_election_safety(st):
@@ -117,6 +156,45 @@ def _t_leader_completeness(st):
     return ~(must_hold & ~ok).flatten(-3).any(-1)
 
 
+def _t_election_safety_hist(st, bounds):
+    occ = st["eTerm"] > 0
+    both = occ.unsqueeze(-1) & occ.unsqueeze(-2)
+    same_term = st["eTerm"].unsqueeze(-1) == st["eTerm"].unsqueeze(-2)
+    diff_leader = st["eLeader"].unsqueeze(-1) != st["eLeader"].unsqueeze(-2)
+    return ~(both & same_term & diff_leader).flatten(-2).any(-1)
+
+
+def _t_leader_completeness_hist(st, bounds):
+    from raft_tla_tpu_torch.ops.loguniv import LogUniverse
+    lt, lv = st["logTerm"], st["logVal"]
+    ks = torch.arange(lt.shape[-1], device=lt.device)
+    committed = ks < st["commitIndex"].unsqueeze(-1)               # [j, k]
+    et, ev, eln = LogUniverse.of(bounds).decode(st["eLog"])        # [e, k]
+    occ = st["eTerm"] > 0
+    later = occ.unsqueeze(-1) & (st["eTerm"].unsqueeze(-1)
+                                 > st["term"].unsqueeze(-2))       # [e, j]
+    long_enough = ks < eln.unsqueeze(-1)                           # [e, k]
+    same = (et.unsqueeze(-2) == lt.unsqueeze(-3)) \
+        & (ev.unsqueeze(-2) == lv.unsqueeze(-3))                   # [e, j, k]
+    ok = long_enough.unsqueeze(-2) & same
+    must = later.unsqueeze(-1) & committed.unsqueeze(-3)
+    return ~(must & ~ok).flatten(-3).any(-1)
+
+
+def _t_all_logs_prefix_closed(st, bounds):
+    from raft_tla_tpu_torch.ops.loguniv import LogUniverse
+    uni = LogUniverse.of(bounds)
+    mask = st["allLogs"]
+    rs = torch.arange(uni.size, device=mask.device)
+    parent = uni.prefix_id(rs)
+
+    def has(r):
+        return (mask[..., r // 32] >> (r % 32)) & 1
+
+    bad = (has(rs) > 0) & (rs >= 1) & (has(parent) == 0)
+    return ~bad.any(-1)
+
+
 # name -> (python predicate, torch predicate)
 REGISTRY = {
     "NoTwoLeaders": (_py_election_safety, _t_election_safety),
@@ -127,10 +205,25 @@ REGISTRY = {
     "LeaderCompleteness": (_py_leader_completeness, _t_leader_completeness),
 }
 
+# History-based invariants: they read the faithful-mode fields, so
+# CheckConfig accepts them only with Bounds.history.  Their torch predicates
+# take the bounds (the log universe) as a second argument.
+HISTORY_REGISTRY = {
+    "ElectionSafetyHist": (_py_election_safety_hist,
+                           _t_election_safety_hist),
+    "LeaderCompletenessHist": (_py_leader_completeness_hist,
+                               _t_leader_completeness_hist),
+    "AllLogsPrefixClosed": (_py_all_logs_prefix_closed,
+                            _t_all_logs_prefix_closed),
+}
+REGISTRY.update(HISTORY_REGISTRY)
+
 # name -> predicate code in csrc/step.cu (``enum Invariant``)
 CODES = {
     "NoTwoLeaders": 0, "ElectionSafety": 0, "NaiveNoTwoLeaders": 1,
     "LogMatching": 2, "CommittedWithinLog": 3, "LeaderCompleteness": 4,
+    "ElectionSafetyHist": 5, "LeaderCompletenessHist": 6,
+    "AllLogsPrefixClosed": 7,
 }
 
 
@@ -138,5 +231,9 @@ def py_invariant(name: str):
     return REGISTRY[name][0]
 
 
-def torch_invariant(name: str):
-    return REGISTRY[name][1]
+def torch_invariant(name: str, bounds: Bounds):
+    """The batched torch predicate of ``name`` for ``bounds``."""
+    fn = REGISTRY[name][1]
+    if name in HISTORY_REGISTRY:
+        return lambda st: fn(st, bounds)
+    return fn

@@ -15,8 +15,16 @@ ops/pallas_step.py): the CPU tests run it against the JAX reference, and
 ``chip_smoke.py`` holds the kernel against it on the card.  It is not a
 yardstick of speed.
 
-Capacity overflow is loud: ``bag_add`` reports when no slot is free, and
-the engine fails if the flag fires on a lane it expands.
+In faithful mode (``Bounds.history``) the steps also update the history
+variables: Restart and Timeout clear ``voterLog[i]``, AppendEntries and the
+RequestVote reply carry ``mlog`` as a log rank, a granted vote response
+extends ``voterLog``, BecomeLeader inserts its record into the
+``elections`` slots, and every lane's ``allLogs`` gains the parent's logs
+(:func:`finish_expand`).
+
+Capacity overflow is loud: ``bag_add`` (and the elections insert) report
+when no slot is free, and the engine fails if the flag fires on a lane it
+expands.
 """
 
 from __future__ import annotations
@@ -28,11 +36,16 @@ from raft_tla_tpu_torch.models import invariants as inv_mod
 from raft_tla_tpu_torch.models import spec as SP
 from raft_tla_tpu_torch.models import views
 from raft_tla_tpu_torch.ops import fingerprint as fpr
+from raft_tla_tpu_torch.ops import loguniv
 from raft_tla_tpu_torch.ops import msgbits as mb
 from raft_tla_tpu_torch.ops import state as st
 from raft_tla_tpu_torch.ops import symmetry as sym
 
 I32 = torch.int32
+
+# Calls of the plain fused step (chip_smoke.py checks that the card path
+# never makes one).
+calls = 0
 
 
 # -- batched indexing helpers (one-hot updates, clamped gathers) -------------
@@ -93,6 +106,13 @@ def _last_term(s, i):
     return torch.where(ln > 0, _get(_get_row(s["logTerm"], i), ln - 1), 0)
 
 
+def _log_rank(bounds, s, i):
+    """Rank of ``log[i]`` in the bounded log universe (faithful mode)."""
+    return loguniv.LogUniverse.of(bounds).log_id(
+        _get_row(s["logTerm"], i), _get_row(s["logVal"], i),
+        _get(s["logLen"], i))
+
+
 def _log_at(s, i, k):
     """``logTerm[i, clip(k)]`` / ``logVal[i, clip(k)]`` (0-based column)."""
     return _get(_get_row(s["logTerm"], i), k), _get(_get_row(s["logVal"], i), k)
@@ -100,19 +120,27 @@ def _log_at(s, i, k):
 
 # -- bag operations (raft.tla:106-130) ---------------------------------------
 
+def _slot_insert(match, empty):
+    """Set/bag insert plan over slot masks ``[..., M]``: ``(ins, overflow)``
+    with ``ins`` the one-hot first free slot (all-False when the element
+    exists or nothing is free).  Shared by the message bag and the
+    faithful-mode elections set."""
+    exists, has_empty = match.any(-1), empty.any(-1)
+    first_empty = empty & (torch.cumsum(empty.to(I32), -1) == 1)
+    ins = (~exists & has_empty).unsqueeze(-1) & first_empty
+    return ins, ~exists & ~has_empty
+
+
 def bag_add(s, hi, lo):
     """``WithMessage`` (raft.tla:106-110). Returns (struct', overflow)."""
     H, L, C = s["msgHi"], s["msgLo"], s["msgCount"]
     match = (H == hi.unsqueeze(-1)) & (L == lo.unsqueeze(-1)) & (C > 0)
-    empty = C == 0
-    exists, has_empty = match.any(-1), empty.any(-1)
-    first_empty = empty & (torch.cumsum(empty.to(I32), -1) == 1)
-    ins = (~exists & has_empty).unsqueeze(-1) & first_empty
+    ins, ovf = _slot_insert(match, C == 0)
     out = dict(s)
     out["msgHi"] = torch.where(ins, hi.unsqueeze(-1), H)
     out["msgLo"] = torch.where(ins, lo.unsqueeze(-1), L)
     out["msgCount"] = C + match.to(I32) + ins.to(I32)
-    return out, ~exists & ~has_empty
+    return out, ovf
 
 
 def bag_remove(s, hi, lo):
@@ -161,6 +189,8 @@ def k_restart(bounds, s, i):
     out["nextIndex"] = _set_row(s["nextIndex"], i, 1)
     out["matchIndex"] = _set_row(s["matchIndex"], i, 0)
     out["commitIndex"] = _set1(s["commitIndex"], i, 0)
+    if "vLog" in s:   # voterLog[i] := empty map (raft.tla:171)
+        out["vLog"] = _set_row(s["vLog"], i, 0)
     return out, _const(s["role"], True), _const(s["role"], False)
 
 
@@ -174,6 +204,8 @@ def k_timeout(bounds, s, i):
     out["votedFor"] = _set1(s["votedFor"], i, SP.NIL)
     out["vResp"] = _set1(s["vResp"], i, 0)
     out["vGrant"] = _set1(s["vGrant"], i, 0)
+    if "vLog" in s:   # voterLog[i] := empty map (raft.tla:186)
+        out["vLog"] = _set_row(s["vLog"], i, 0)
     return out, valid, _const(s["role"], False)
 
 
@@ -198,15 +230,23 @@ def k_append_entries(bounds, s, i, j):
     et, ev = _log_at(s, i, ni - 1)
     ent_term = torch.where(has_ent, et, 0)
     ent_val = torch.where(has_ent, ev, 0)
+    mlog = _log_rank(bounds, s, i) if "allLogs" in s else 0  # :220-222
     hi, lo = mb.ae_request(
         _get(s["term"], i), prev_idx, prev_term, has_ent.to(I32), ent_term,
-        ent_val, torch.minimum(_get(s["commitIndex"], i), last_entry), i, j)
+        ent_val, torch.minimum(_get(s["commitIndex"], i), last_entry), i, j,
+        mlog)
     out, ovf = bag_add(s, hi.to(I32), lo.to(I32))
     return out, valid, valid & ovf
 
 
 def k_become_leader(bounds, s, i):
-    """``BecomeLeader(i)`` (raft.tla:229-243); Quorum as popcount."""
+    """``BecomeLeader(i)`` (raft.tla:229-243); Quorum as popcount.
+
+    In faithful mode also inserts [eterm, eleader, elog, evotes, evoterLog]
+    into the ``elections`` slot set (raft.tla:237-242), all from the
+    unprimed state — a set insert like ``bag_add``, minus multiplicities;
+    a full table is a loud overflow.
+    """
     n = bounds.n_servers
     valid = (_get(s["role"], i) == SP.CANDIDATE) \
         & (2 * _popcount(_get(s["vGrant"], i)) > n)
@@ -214,7 +254,23 @@ def k_become_leader(bounds, s, i):
     out["role"] = _set1(s["role"], i, SP.LEADER)
     out["nextIndex"] = _set_row(s["nextIndex"], i, _get(s["logLen"], i) + 1)
     out["matchIndex"] = _set_row(s["matchIndex"], i, 0)
-    return out, valid, _const(s["role"], False)
+    ovf = _const(s["role"], False)
+    if "eTerm" in s:
+        lid, term_i = _log_rank(bounds, s, i), _get(s["term"], i)
+        votes_i, vrow = _get(s["vGrant"], i), _get_row(s["vLog"], i)
+        occ = s["eTerm"] > 0
+        match = occ & (s["eTerm"] == term_i.unsqueeze(-1)) \
+            & (s["eLeader"] == i.unsqueeze(-1)) \
+            & (s["eLog"] == lid.unsqueeze(-1)) \
+            & (s["eVotes"] == votes_i.unsqueeze(-1)) \
+            & (s["eVLog"] == vrow.unsqueeze(-2)).all(-1)
+        ins, ovf = _slot_insert(match, ~occ)
+        for f, v in (("eTerm", term_i), ("eLeader", i.expand_as(term_i)),
+                     ("eLog", lid), ("eVotes", votes_i)):
+            out[f] = torch.where(ins, v.unsqueeze(-1), s[f])
+        out["eVLog"] = torch.where(ins.unsqueeze(-1), vrow.unsqueeze(-2),
+                                   s["eVLog"])
+    return out, valid, valid & ovf
 
 
 def k_client_request(bounds, s, i, v):
@@ -289,12 +345,13 @@ def k_receive(bounds, s, slot):
     voted_i = _get(s["votedFor"], i)
     grant = (mt == ct) & log_ok_rv & ((voted_i == SP.NIL)
                                       | (voted_i == j + 1))
-    resp_hi, resp_lo = mb.rv_response(ct, grant.to(I32), i, j)
+    my_mlog = _log_rank(bounds, s, i) if "allLogs" in s \
+        else torch.zeros_like(ct)                             # :297-299
+    resp_hi, resp_lo = mb.rv_response(ct, grant.to(I32), i, j, my_mlog)
     s_rvreq = dict(s)
     s_rvreq["votedFor"] = torch.where(
         grant.unsqueeze(-1), _set1(s["votedFor"], i, j + 1), s["votedFor"])
-    s_rvreq, ovf_rv = reply(s_rvreq, resp_hi, torch.zeros_like(resp_hi),
-                            hi, lo)
+    s_rvreq, ovf_rv = reply(s_rvreq, resp_hi, resp_lo, hi, lo)
     ovf = ovf | (g_rvreq & ovf_rv)
 
     # RequestVoteResponse: DropStaleResponse | HandleRequestVoteResponse
@@ -306,6 +363,12 @@ def k_receive(bounds, s, slot):
     s_rvresp["vGrant"] = torch.where(
         (mb.fa(hi) > 0).unsqueeze(-1),
         _set1(s["vGrant"], i, _get(s["vGrant"], i) | bit_j), s["vGrant"])
+    if "vLog" in s:
+        # voterLog[i] @@ (j :> m.mlog): the existing entry wins
+        # (raft.tla:316-317)
+        cur = _get(_get_row(s["vLog"], i), j)
+        newv = torch.where((mb.fa(hi) > 0) & (cur == 0), mb.fg(lo) + 1, cur)
+        s_rvresp["vLog"] = _set2(s["vLog"], i, j, newv)
     s_rvresp = bag_remove(s_rvresp, hi, lo)
 
     # HandleAppendEntriesRequest (raft.tla:327-389)
@@ -457,10 +520,31 @@ def grouped_dispatch(bounds, s, groups):
     return succs, valids, ovfs
 
 
-def finish_expand(succs, valids, ovfs):
-    """Concatenate the groups' lanes and canonicalize every successor."""
+def _alllogs_update(bounds, s):
+    """``allLogs' = allLogs \\cup {log[i] : i \\in Server}`` with the
+    UNPRIMED logs (raft.tla:464-465): one update per parent row ``[B, Wa]``,
+    the same on every lane.  Words are built in int64 holding [0, 2^32)."""
+    uni = loguniv.LogUniverse.of(bounds)
+    ids = uni.log_id(s["logTerm"], s["logVal"], s["logLen"]).long()  # [B, n]
+    Wa = s["allLogs"].shape[-1]
+    words = torch.arange(Wa, device=ids.device)
+    bits = torch.where((ids // 32).unsqueeze(-1) == words,
+                       (1 << (ids % 32)).unsqueeze(-1), 0)          # [B, n, Wa]
+    delta = bits[..., 0, :]
+    for t in range(1, bits.shape[-2]):
+        delta = delta | bits[..., t, :]
+    return fpr.u32_bits((s["allLogs"].long() & 0xFFFFFFFF) | delta)
+
+
+def finish_expand(bounds, s, succs, valids, ovfs):
+    """Concatenate the groups' lanes, apply the shared allLogs union
+    (faithful mode) and canonicalize every successor."""
     all_succs = {f: torch.cat([g[f] for g in succs], dim=1).to(I32)
-                 for f in st.STATE_FIELDS}
+                 for f in succs[0]}
+    if "allLogs" in s:
+        new = _alllogs_update(bounds, s)
+        all_succs["allLogs"] = new.unsqueeze(1).expand_as(
+            all_succs["allLogs"]).contiguous()
     return (st.canonicalize(all_succs), torch.cat(valids, 1),
             torch.cat(ovfs, 1))
 
@@ -471,7 +555,7 @@ def build_expand(bounds: Bounds, spec: str = "full"):
     groups = group_instances(SP.action_table(bounds, spec))
 
     def expand(s):
-        return finish_expand(*grouped_dispatch(bounds, s, groups))
+        return finish_expand(bounds, s, *grouped_dispatch(bounds, s, groups))
 
     return expand
 
@@ -496,11 +580,13 @@ def build_step(bounds: Bounds, spec: str = "full", invariants: tuple = (),
     """
     lay = st.Layout.of(bounds)
     expand = build_expand(bounds, spec)
-    inv_fns = [inv_mod.torch_invariant(nm) for nm in invariants]
+    inv_fns = [inv_mod.torch_invariant(nm, bounds) for nm in invariants]
     viewer = views.torch_view(view) if view else None
     consts, orbit = {}, {}
 
     def step(vecs):
+        global calls
+        calls += 1
         B, dev = vecs.shape[0], vecs.device
         if dev not in consts:
             consts[dev] = fpr.torch_constants(lay.width, dev)

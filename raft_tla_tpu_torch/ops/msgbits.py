@@ -118,6 +118,11 @@ def ff(lo):
     return _get(lo, *_LO_FIELDS["f"])
 
 
+def fg(lo):
+    """``mlog`` as a log-universe rank (faithful mode only; 0 in parity)."""
+    return _get(lo, *_LO_FIELDS["g"])
+
+
 # -- typed constructors (field meanings per record schema, see module doc) ---
 
 def rv_request(term, last_log_term, last_log_index, i, j):

@@ -8,13 +8,17 @@ same dict (``svecs``, ``valid``, ``overflow``, ``fp_hi``, ``fp_lo``,
 ``inv_ok``, ``con_ok``; keys as int32 holding the uint32 bits).  With
 ``symmetry`` and ``view`` set, the keys are the viewed, orbit-minimal dedup
 keys: the kernel takes the group's permutations
-(ops/symmetry.kernel_tables) and the view's code (models/views.KERNEL_CODES).
+(ops/symmetry.kernel_tables), in faithful mode under Value symmetry the
+rank maps (ops/symmetry.kernel_rank_maps), and the view's code
+(models/views.KERNEL_CODES).
 
-The kernel is compiled per layout (servers, log capacity, message slots are
-``-D`` macros, see csrc/step.cu) and cached by that key.  It is held to
-this contract against the plain step: ``valid`` equal on every lane, every
-other output bit-equal where ``valid`` is true.  Invalid lanes are written
-as zeros; the engine never reads them.
+The kernel is compiled per layout (servers, log capacity, message slots
+and, in faithful mode, election slots, allLogs words and the log
+universe's terms and values are ``-D`` macros, see csrc/step.cu) and cached
+by that key.  It is held to this contract against the plain step:
+``valid`` equal on every lane, every other output bit-equal where
+``valid`` is true.  Invalid lanes are written as zeros; the engine never
+reads them.
 """
 
 from __future__ import annotations
@@ -39,33 +43,42 @@ SOURCE = "step.cu"
 launches = 0
 
 # The fused step's whole write surface per spec subset (the struct fields a
-# successor may differ from its parent in) — the parity-mode part of the
-# reference's FUSED_WRITES.  Hand-kept, not derived from the kernels;
-# tests/test_torch_step.py checks the plain step against it.
+# successor may differ from its parent in, faithful-mode fields included) —
+# the reference's FUSED_WRITES.  Hand-kept, not derived from the kernels;
+# the tests check the plain step against it in both modes.
 FUSED_WRITES = {
     "full": (
-        "commitIndex", "logLen", "logTerm", "logVal", "matchIndex",
-        "msgCount", "msgHi", "msgLo", "nextIndex", "role", "term", "vGrant",
+        "allLogs", "commitIndex", "eLeader", "eLog", "eTerm", "eVLog",
+        "eVotes", "logLen", "logTerm", "logVal", "matchIndex", "msgCount",
+        "msgHi", "msgLo", "nextIndex", "role", "term", "vGrant", "vLog",
         "vResp", "votedFor",
     ),
     # Receive alone already writes most of the schema.
     "election": (
-        "commitIndex", "logLen", "logTerm", "logVal", "matchIndex",
-        "msgCount", "msgHi", "msgLo", "nextIndex", "role", "term", "vGrant",
+        "allLogs", "commitIndex", "eLeader", "eLog", "eTerm", "eVLog",
+        "eVotes", "logLen", "logTerm", "logVal", "matchIndex", "msgCount",
+        "msgHi", "msgLo", "nextIndex", "role", "term", "vGrant", "vLog",
         "vResp", "votedFor",
     ),
+    # No BecomeLeader: the election-history fields stay put.
     "replication": (
-        "commitIndex", "logLen", "logTerm", "logVal", "matchIndex",
-        "msgCount", "msgHi", "msgLo", "nextIndex", "role", "term", "vGrant",
-        "vResp", "votedFor",
+        "allLogs", "commitIndex", "logLen", "logTerm", "logVal",
+        "matchIndex", "msgCount", "msgHi", "msgLo", "nextIndex", "role",
+        "term", "vGrant", "vLog", "vResp", "votedFor",
     ),
 }
 
 
 def layout_defines(bounds: Bounds) -> dict:
-    """The ``-D`` macros that specialise csrc/step.cu to a layout."""
+    """The ``-D`` macros that specialise csrc/step.cu to a layout: servers,
+    log capacity and message slots; in faithful mode also the election
+    slots, the allLogs words and the log universe's terms and values."""
     lay = st.Layout.of(bounds)
-    return {"RT_N": lay.n, "RT_L": lay.L, "RT_S": lay.S}
+    out = {"RT_N": lay.n, "RT_L": lay.L, "RT_S": lay.S}
+    if lay.history:
+        out.update(RT_E=lay.E, RT_WA=lay.Wa, RT_T=bounds.term_cap,
+                   RT_V=bounds.n_values)
+    return out
 
 
 def _lib(bounds: Bounds):
@@ -74,7 +87,8 @@ def _lib(bounds: Bounds):
     fn = lib.rt_step_launch
     fn.argtypes = ([ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p,
                     ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p,
-                    ctypes.c_void_p] + [ctypes.c_int] * 4
+                    ctypes.c_void_p] + [ctypes.c_int] * 3
+                   + [ctypes.c_void_p, ctypes.c_int]
                    + [ctypes.c_void_p, ctypes.c_int]
                    + [ctypes.c_int] * 4 + [ctypes.c_void_p] * 8)
     fn.restype = ctypes.c_int
@@ -109,6 +123,8 @@ def build_step(bounds: Bounds, spec: str = "full", invariants: tuple = (),
                             device=device)
     P, Q = sym.group_sizes(bounds, symmetry)
     nv = bounds.n_values if "Value" in symmetry else 0
+    rmaps = torch.as_tensor(sym.kernel_rank_maps(bounds, symmetry),
+                            device=device).contiguous()
     view_code = views.KERNEL_CODES[view]
 
     def step(vecs):
@@ -132,7 +148,8 @@ def build_step(bounds: Bounds, spec: str = "full", invariants: tuple = (),
         }
         err = launch(vecs.data_ptr(), B, table.data_ptr(), A,
                      consts[0].data_ptr(), consts[1].data_ptr(),
-                     group.data_ptr(), P, Q, nv, view_code,
+                     group.data_ptr(), P, Q, nv,
+                     rmaps.data_ptr() if rmaps.numel() else None, view_code,
                      ctypes.cast(inv_arr, ctypes.c_void_p), n_inv,
                      bounds.max_term, bounds.max_log, bounds.max_msgs,
                      bounds.max_dup,

@@ -3,7 +3,8 @@
 The spec's 13 non-history variables (``raft.tla:50-86`` plus ``messages``,
 ``raft.tla:32``) map to a struct of small int32 arrays; a whole state also
 round-trips to a flat ``int32[W]`` vector (the store and fingerprint form).
-Parity mode only: the proof-only history variables are not carried.
+In faithful mode (``Bounds.history``) the proof-only history variables are
+carried too, as the fields of :data:`HISTORY_FIELDS` after the parity ones.
 
 Struct fields (n = servers, L = log capacity, S = message slots):
 
@@ -26,7 +27,8 @@ msgHi/Lo/Count  (S,)      the ``messages`` bag (raft.tla:32), ops/msgbits.py
 
 Canonical form (required before fingerprinting): message slots sorted by
 (occupied-first, hi, lo) with empty slots all-zero; log columns >= logLen[i]
-zero.  Every function here takes numpy arrays or torch tensors with any
+zero; in faithful mode the election slots sorted by (occupied-first, eTerm,
+eLeader, eLog, eVotes, eVLog columns).  Every function here takes numpy arrays or torch tensors with any
 leading batch dimensions; the numpy form serves the host interpreter, the
 torch form the plain step (ops/kernels.py).  ``csrc/step.cu`` repeats the
 layout as compile-time offsets.
@@ -46,6 +48,21 @@ STATE_FIELDS = ("role", "term", "votedFor", "commitIndex", "logLen",
                 "logTerm", "logVal", "vResp", "vGrant",
                 "nextIndex", "matchIndex", "msgHi", "msgLo", "msgCount")
 
+# Faithful-mode extras, appended after the parity fields so parity-mode
+# vectors are untouched.  Log-valued data is stored as ranks in the bounded
+# log universe (ops/loguniv.py):
+#   allLogs  (Wa,)   U-bit bitmask of log ranks           (raft.tla:44)
+#   vLog     (n, n)  voterLog[i][j] as rank+1, 0 = absent (raft.tla:77)
+#   eTerm    (E,)    elections slots (raft.tla:39); 0 = empty slot
+#   eLeader  (E,)    eleader (server id; 0 when the slot is empty)
+#   eLog     (E,)    elog as rank
+#   eVotes   (E,)    evotes as a server bitmask
+#   eVLog    (E, n)  evoterLog[j] as rank+1, 0 = absent
+HISTORY_FIELDS = ("allLogs", "vLog", "eTerm", "eLeader", "eLog",
+                  "eVotes", "eVLog")
+_MATRIX_FIELDS = ("logTerm", "logVal", "nextIndex", "matchIndex", "vLog",
+                  "eVLog")
+
 
 @dataclasses.dataclass(frozen=True)
 class Layout:
@@ -54,15 +71,31 @@ class Layout:
     n: int
     L: int
     S: int
+    E: int = 0       # election slots (faithful mode; 0 = parity mode)
+    Wa: int = 0      # allLogs bitmask words
 
     @classmethod
     def of(cls, bounds: Bounds) -> "Layout":
-        return cls(n=bounds.n_servers, L=bounds.log_cap, S=bounds.msg_cap)
+        if not bounds.history:
+            return cls(n=bounds.n_servers, L=bounds.log_cap,
+                       S=bounds.msg_cap)
+        from raft_tla_tpu_torch.ops.loguniv import LogUniverse
+        return cls(n=bounds.n_servers, L=bounds.log_cap, S=bounds.msg_cap,
+                   E=bounds.max_elections,
+                   Wa=LogUniverse.of(bounds).mask_words)
+
+    @property
+    def history(self) -> bool:
+        return self.E > 0
+
+    @property
+    def fields(self) -> tuple:
+        return STATE_FIELDS + (HISTORY_FIELDS if self.history else ())
 
     @property
     def shapes(self) -> dict:
-        n, L, S = self.n, self.L, self.S
-        return {
+        n, L, S, E = self.n, self.L, self.S, self.E
+        out = {
             "role": (n,), "term": (n,), "votedFor": (n,),
             "commitIndex": (n,), "logLen": (n,),
             "logTerm": (n, L), "logVal": (n, L),
@@ -70,6 +103,13 @@ class Layout:
             "nextIndex": (n, n), "matchIndex": (n, n),
             "msgHi": (S,), "msgLo": (S,), "msgCount": (S,),
         }
+        if self.history:
+            out.update({
+                "allLogs": (self.Wa,), "vLog": (n, n),
+                "eTerm": (E,), "eLeader": (E,), "eLog": (E,),
+                "eVotes": (E,), "eVLog": (E, n),
+            })
+        return out
 
     @property
     def width(self) -> int:
@@ -81,7 +121,7 @@ def init_struct(bounds: Bounds) -> dict:
     lay = Layout.of(bounds)
     n, L, S = lay.n, lay.L, lay.S
     i32 = np.int32
-    return {
+    out = {
         "role": np.full((n,), FOLLOWER, dtype=i32),
         "term": np.ones((n,), dtype=i32),
         "votedFor": np.full((n,), NIL, dtype=i32),
@@ -97,16 +137,25 @@ def init_struct(bounds: Bounds) -> dict:
         "msgLo": np.zeros((S,), dtype=i32),
         "msgCount": np.zeros((S,), dtype=i32),
     }
+    if lay.history:
+        # InitHistoryVars (raft.tla:140-142): elections = {}, allLogs = {},
+        # voterLog = per-server empty map.
+        out.update({f: np.zeros(shape, dtype=i32)
+                    for f, shape in lay.shapes.items()
+                    if f in HISTORY_FIELDS})
+    return out
 
 
 def _field_ndim(f: str) -> int:
-    return 2 if f in ("logTerm", "logVal", "nextIndex", "matchIndex") else 1
+    return 2 if f in _MATRIX_FIELDS else 1
 
 
 def pack(struct) -> np.ndarray | torch.Tensor:
-    """Struct -> flat int32[..., W] vector(s), fields in STATE_FIELDS order."""
+    """Struct -> flat int32[..., W] vector(s): the parity fields in
+    STATE_FIELDS order, then (faithful mode) HISTORY_FIELDS."""
     parts = []
-    for f in STATE_FIELDS:
+    fields = STATE_FIELDS + (HISTORY_FIELDS if "allLogs" in struct else ())
+    for f in fields:
         a = struct[f]
         batch = tuple(a.shape[:a.ndim - _field_ndim(f)])
         parts.append(a.reshape(batch + (-1,)))
@@ -187,6 +236,22 @@ def canonicalize(struct: dict) -> dict:
     out = dict(struct)
     out["msgHi"], out["msgLo"], out["msgCount"] = _network_sort(
         [occ_key, hi, lo], [hi, lo, ct], int(struct["msgHi"].shape[-1]))
+    if "eTerm" in struct:
+        # elections is a set (raft.tla:39): slot order is an encoding
+        # artifact, sorted like the bag.  eTerm > 0 marks occupancy.
+        eocc = struct["eTerm"] > 0
+        if isinstance(eocc, torch.Tensor):
+            eocc_key = (~eocc).to(torch.int32)
+        else:
+            eocc_key = (~eocc).astype(np.int32)
+        evl = [struct["eVLog"][..., c]
+               for c in range(struct["eVLog"].shape[-1])]
+        base = [struct[f] for f in ("eTerm", "eLeader", "eLog", "eVotes")]
+        vals = _network_sort([eocc_key] + base + evl, base + evl,
+                             int(struct["eTerm"].shape[-1]))
+        out["eTerm"], out["eLeader"], out["eLog"], out["eVotes"] = vals[:4]
+        stack = torch.stack if isinstance(eocc, torch.Tensor) else np.stack
+        out["eVLog"] = stack(vals[4:], -1)
     return out
 
 

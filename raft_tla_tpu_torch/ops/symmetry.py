@@ -1,5 +1,5 @@
 """Symmetry reduction over the Server and Value model values (TLC SYMMETRY)
-— the port of the parity-mode part of ``raft_tla_tpu/ops/symmetry.py``.
+— the port of ``raft_tla_tpu/ops/symmetry.py``.
 
 The dedup key of a state becomes its **orbit-minimal fingerprint**:
 ``min over all group elements g of fp(canonicalize(g(s)))``, the min taken
@@ -22,16 +22,28 @@ A value permutation ``q`` remaps ``logVal`` (0 = padding fixed) and the
 entry-value field ``e`` of occupied message slots.  The group is
 ``Server x Value``, ``|G| = n! * V!``; element 0 is the identity.
 
+Faithful mode (ops/state.HISTORY_FIELDS): log ranks carry no server ids, so
+``allLogs``, ``eLog``, ``eTerm`` and ``mlog`` are fixed by ``p``;
+``voterLog`` reorders both axes like ``nextIndex``, occupied election slots
+map ``eLeader`` through ``p`` and bit-permute ``eVotes``, and ``eVLog``
+reorders its columns.  ``q`` maps every log rank through the rank map of
+:func:`_rank_maps`: ``eLog`` directly, ``vLog``/``eVLog`` in the rank+1
+form (0 = absent fixed), the ``g`` field of occupied lo words, and
+``allLogs`` moves bit r to bit ``rmap[r]``.  The election slots re-sort in
+``canonicalize`` like the bag.
+
 Three forms of the same arithmetic:
 
 - :func:`orbit_fingerprint` / :func:`py_orbit_fingerprint`: one state on
   the host (numpy), used for the initial state's key
   (:func:`init_fingerprint`);
 - :func:`build_orbit_fp`: the **plain** batched key in torch, a loop over
-  the |G| elements with the stacked tables of :func:`_server_luts` /
-  :func:`_value_luts` — the plain version K1's orbit stage is held to;
+  the |G| images of :func:`group_images` (the stacked tables of
+  :func:`_server_luts` / :func:`_value_luts` and the rank maps) — the
+  plain version K1's orbit stage is held to; :func:`orbit_sizes` counts
+  the distinct images of each row;
 - ``csrc/step.cu``: K1's orbit stage on the card, fed by
-  :func:`kernel_tables`.
+  :func:`kernel_tables` and :func:`kernel_rank_maps`.
 
 The reference's prescan ladder and sig-prune are gated variants that give
 the same keys bit for bit; they are not ported (ROADMAP.md queue A item 9).
@@ -90,12 +102,48 @@ def _field_mask(fields: dict, name: str) -> tuple:
     return sh, w, (1 << w) - 1
 
 
+@functools.lru_cache(maxsize=None)
+def _rank_maps(bounds: Bounds) -> np.ndarray:
+    """int32 ``[Q, U]``: per value permutation q, each log rank -> the rank
+    of the value-permuted log (faithful mode; the identity first)."""
+    from raft_tla_tpu_torch.ops.loguniv import LogUniverse
+    uni = LogUniverse.of(bounds)
+    logs = [uni.tuple_of_id(r) for r in range(uni.size)]
+    out = np.empty((len(value_permutations(bounds)), uni.size), np.int32)
+    for qi, q in enumerate(value_permutations(bounds)):
+        out[qi] = [uni.id_of_tuple(tuple((t, q[v - 1] + 1) for t, v in log))
+                   for log in logs]
+    return out
+
+
+def _permute_mask(words, rmap):
+    """A set-of-ranks bitmask ``[..., Wa]`` (int32 words) with bit r moved
+    to bit ``rmap[r]``.  Built in int64 holding [0, 2^32): the moved bits
+    are distinct, so their sum within a word is their OR."""
+    torch_in = isinstance(words, torch.Tensor)
+    rmap = torch.as_tensor(rmap, device=words.device).long() if torch_in \
+        else np.asarray(rmap, np.int64)
+    U, Wa = rmap.shape[0], words.shape[-1]
+    rs = torch.arange(U, device=words.device) if torch_in else np.arange(U)
+    w64 = words.long() if torch_in else words.astype(np.int64)
+    bits = (w64[..., rs // 32] >> (rs % 32)) & 1                     # [.., U]
+    place = (rmap // 32 == (torch.arange(Wa, device=words.device)
+                            if torch_in else np.arange(Wa))[:, None]) \
+        * (1 << (rmap % 32))                                         # [Wa, U]
+    new = (bits.unsqueeze(-2) if torch_in else bits[..., None, :]) * place
+    new = new.sum(-1)
+    if torch_in:
+        return fpr.u32_bits(new)
+    return new.astype(np.uint32).view(np.int32)
+
+
 # -- one state (numpy) ---------------------------------------------------------
 
 def permute_values(struct: dict, q: tuple, bounds: Bounds) -> dict:
     """Apply value permutation ``q`` to one numpy state struct: ``logVal``
-    contents (0 = padding fixed) and the message field ``e`` of occupied
-    slots."""
+    contents (0 = padding fixed), the message field ``e`` of occupied
+    slots and, in faithful mode, every log rank (see the module
+    docstring)."""
     V = bounds.n_values
     vlut = np.asarray((0,) + tuple(q[v - 1] + 1 for v in range(1, V + 1)))
     e_sh, e_w, e_m = _field_mask(mb._LO_FIELDS, "e")
@@ -105,6 +153,19 @@ def permute_values(struct: dict, q: tuple, bounds: Bounds) -> dict:
     out["logVal"] = vlut[np.clip(struct["logVal"], 0, V)].astype(np.int32)
     lo = struct["msgLo"]
     new_lo = (lo & ~(e_m << e_sh)) | (e_lut[(lo >> e_sh) & e_m] << e_sh)
+    if "allLogs" in struct:
+        rmap = _rank_maps(bounds)[value_permutations(bounds).index(q)]
+        U = rmap.shape[0]
+        rlut1 = np.concatenate([[0], rmap + 1])
+        out["vLog"] = rlut1[np.clip(struct["vLog"], 0, U)].astype(np.int32)
+        out["eLog"] = rmap[np.clip(struct["eLog"], 0, U - 1)]
+        out["eVLog"] = rlut1[np.clip(struct["eVLog"], 0, U)].astype(np.int32)
+        g_sh, g_w, g_m = _field_mask(mb._LO_FIELDS, "g")
+        g_lut = np.zeros((1 << g_w,), np.int64)
+        g_lut[:U] = rmap
+        new_lo = (new_lo & ~(g_m << g_sh)) \
+            | (g_lut[(new_lo >> g_sh) & g_m] << g_sh)
+        out["allLogs"] = _permute_mask(struct["allLogs"], rmap)
     out["msgLo"] = np.where(struct["msgCount"] > 0, new_lo,
                             lo).astype(np.int32)
     return out
@@ -146,6 +207,20 @@ def permute_struct(struct: dict, p: tuple, bounds: Bounds) -> dict:
         "msgLo": struct["msgLo"],
         "msgCount": struct["msgCount"],
     }
+    if "eTerm" in struct:
+        eocc = struct["eTerm"] > 0
+        out.update({
+            "allLogs": struct["allLogs"],
+            "vLog": struct["vLog"][inv][:, inv],
+            "eTerm": struct["eTerm"],
+            "eLeader": np.where(eocc, p_lut[np.clip(struct["eLeader"], 0,
+                                                    15)],
+                                struct["eLeader"]),
+            "eLog": struct["eLog"],
+            "eVotes": np.where(eocc, bitperm(struct["eVotes"]),
+                               struct["eVotes"]),
+            "eVLog": struct["eVLog"][:, inv],
+        })
     return {k: np.asarray(v).astype(np.int32) for k, v in out.items()}
 
 
@@ -238,6 +313,15 @@ def _value_luts(bounds: Bounds) -> tuple:
     return vlut, e_lut
 
 
+def kernel_rank_maps(bounds: Bounds, axes: tuple) -> np.ndarray:
+    """K1's rank maps, int16 ``[Q, U]`` (ranks < 1,024 fit): one row per
+    value permutation of the group's table; empty unless the run is
+    faithful with Value symmetry."""
+    if not bounds.history or "Value" not in axes:
+        return np.zeros((0,), np.int16)
+    return _rank_maps(bounds).astype(np.int16)
+
+
 def kernel_tables(bounds: Bounds, axes: tuple) -> np.ndarray:
     """K1's group table, int8: ``P`` rows of ``(p, inv)`` (2n bytes each;
     the identity alone when Server is off), then ``Q`` rows of ``q`` (V
@@ -271,7 +355,7 @@ def _permute_struct_batch(s: dict, inv, vf_map, bit_lut, p_lut) -> dict:
     new_hi = (hi & ~((s_m << s_sh) | (d_m << d_sh))) \
         | (_lut(p_lut, (hi >> s_sh) & s_m) << s_sh) \
         | (_lut(p_lut, (hi >> d_sh) & d_m) << d_sh)
-    return {
+    out = {
         "role": rows(s["role"], 1),
         "term": rows(s["term"], 1),
         "votedFor": _lut(vf_map, rows(s["votedFor"], 1)),
@@ -287,44 +371,63 @@ def _permute_struct_batch(s: dict, inv, vf_map, bit_lut, p_lut) -> dict:
         "msgLo": s["msgLo"],
         "msgCount": s["msgCount"],
     }
+    if "eTerm" in s:
+        eocc = s["eTerm"] > 0
+        out.update({
+            "allLogs": s["allLogs"],
+            "vLog": rows(rows(s["vLog"], 2), 1),
+            "eTerm": s["eTerm"],
+            "eLeader": torch.where(eocc, _lut(p_lut, s["eLeader"]),
+                                   s["eLeader"]),
+            "eLog": s["eLog"],
+            "eVotes": torch.where(eocc, _lut(bit_lut, s["eVotes"]),
+                                  s["eVotes"]),
+            "eVLog": rows(s["eVLog"], 1),
+        })
+    return out
 
 
-def _permute_values_batch(s: dict, vlut, e_lut) -> dict:
+def _permute_values_batch(s: dict, vlut, e_lut, rmap=None) -> dict:
     """Value permutation of a batched struct, one row of each
-    :func:`_value_luts` table."""
+    :func:`_value_luts` table (and, in faithful mode, of the rank maps)."""
     e_sh, _, e_m = _field_mask(mb._LO_FIELDS, "e")
     lo = s["msgLo"]
     new_lo = (lo & ~(e_m << e_sh)) | (_lut(e_lut, (lo >> e_sh) & e_m) << e_sh)
     out = dict(s)
     out["logVal"] = _lut(vlut, s["logVal"])
+    if "allLogs" in s:
+        U = rmap.shape[0]
+        rlut1 = torch.cat([rmap.new_zeros(1), rmap + 1])
+        g_sh, g_w, g_m = _field_mask(mb._LO_FIELDS, "g")
+        g_lut = torch.cat([rmap, rmap.new_zeros((1 << g_w) - U)])
+        out["vLog"] = _lut(rlut1, s["vLog"])
+        out["eLog"] = _lut(rmap, s["eLog"])
+        out["eVLog"] = _lut(rlut1, s["eVLog"])
+        new_lo = (new_lo & ~(g_m << g_sh)) \
+            | (_lut(g_lut, (new_lo >> g_sh) & g_m) << g_sh)
+        out["allLogs"] = _permute_mask(s["allLogs"], rmap)
     out["msgLo"] = torch.where(s["msgCount"] > 0, new_lo, lo)
     return out
 
 
-def build_orbit_fp(bounds: Bounds, axes: tuple, consts: torch.Tensor):
-    """The plain batched orbit key: ``struct[..., fields] -> (hi, lo)``
-    int32 tensors holding the uint32 bits, over the leading dims.
-
-    ``consts`` is :func:`ops.fingerprint.torch_constants` on the struct's
-    device.  A loop over the |G| = P·Q group elements (element k is server
-    permutation ``k // Q`` then value permutation ``k % Q``): permute,
-    canonicalize, pack, fingerprint, keep the lexicographic min of the
-    unsigned pair.  The comparison runs in int64 holding values in
-    [0, 2^32): a fused 64-bit key ``hi * 2^32 + lo`` would overflow.
-    """
-    P, Q = group_sizes(bounds, axes)
+def group_images(bounds: Bounds, axes: tuple, device):
+    """``images(struct)``: a generator over the |G| = P·Q group elements
+    (element k is server permutation ``k // Q`` then value permutation
+    ``k % Q``) of the canonical packed image ``int32[..., W]`` of a batched
+    struct — the plain permutation that K1's orbit stage is held to."""
     sl = _server_luts(bounds) if "Server" in axes else None
     vl = _value_luts(bounds) if "Value" in axes else None
-    dev = consts.device
-    sluts = tuple(torch.as_tensor(a, device=dev) for a in sl) if sl else None
-    vluts = tuple(torch.as_tensor(a, device=dev) for a in vl) if vl else None
+    sluts = tuple(torch.as_tensor(a, device=device) for a in sl) \
+        if sl else None
+    vluts = tuple(torch.as_tensor(a, device=device) for a in vl) \
+        if vl else None
+    if vluts is not None and bounds.history:
+        vluts += (torch.as_tensor(_rank_maps(bounds), device=device),)
     if sluts is not None:
         sluts = (sluts[0].long(),) + sluts[1:]
+    P, Q = group_sizes(bounds, axes)
 
-    def orbit_fp(struct):
-        global plain_calls
-        plain_calls += 1
-        bh = bl = None
+    def images(struct):
         for k in range(P * Q):
             pi, qi = k // Q, k % Q
             t = struct
@@ -332,7 +435,29 @@ def build_orbit_fp(bounds: Bounds, axes: tuple, consts: torch.Tensor):
                 t = _permute_struct_batch(t, *(a[pi] for a in sluts))
             if vluts is not None:
                 t = _permute_values_batch(t, *(a[qi] for a in vluts))
-            hi, lo = fpr.fingerprint(st.pack(st.canonicalize(t)), consts)
+            yield st.pack(st.canonicalize(t))
+
+    return images
+
+
+def build_orbit_fp(bounds: Bounds, axes: tuple, consts: torch.Tensor):
+    """The plain batched orbit key: ``struct[..., fields] -> (hi, lo)``
+    int32 tensors holding the uint32 bits, over the leading dims.
+
+    ``consts`` is :func:`ops.fingerprint.torch_constants` on the struct's
+    device.  For each image of :func:`group_images`: fingerprint, keep the
+    lexicographic min of the unsigned pair.  The comparison runs in int64
+    holding values in [0, 2^32): a fused 64-bit key ``hi * 2^32 + lo``
+    would overflow.
+    """
+    images = group_images(bounds, axes, consts.device)
+
+    def orbit_fp(struct):
+        global plain_calls
+        plain_calls += 1
+        bh = bl = None
+        for img in images(struct):
+            hi, lo = fpr.fingerprint(img, consts)
             hi, lo = hi.to(torch.int64) & _M32, lo.to(torch.int64) & _M32
             if bh is None:
                 bh, bl = hi, lo
@@ -343,3 +468,21 @@ def build_orbit_fp(bounds: Bounds, axes: tuple, consts: torch.Tensor):
         return fpr.u32_bits(bh), fpr.u32_bits(bl)
 
     return orbit_fp
+
+
+def orbit_sizes(vecs: torch.Tensor, bounds: Bounds, axes: tuple
+                ) -> torch.Tensor:
+    """The orbit size of each canonical row of ``vecs [B, W]``: the number
+    of distinct canonical rows among its |G| images (exact row equality, no
+    hashing).  A symmetric run's per-level sums of these equal the level
+    counts of the same universe without symmetry."""
+    lay = st.Layout.of(bounds)
+    imgs = list(group_images(bounds, axes, vecs.device)(
+        st.unpack(vecs, lay)))
+    n = torch.zeros(vecs.shape[0], dtype=torch.int64, device=vecs.device)
+    for a, img in enumerate(imgs):
+        seen = torch.zeros_like(n, dtype=torch.bool)
+        for b in range(a):
+            seen |= (imgs[b] == img).all(-1)
+        n += (~seen).long()
+    return n

@@ -5,8 +5,9 @@ Understands ``SPECIFICATION``, ``INIT``/``NEXT``, ``INVARIANT(S)``,
 ``CONSTANT(S)``, ``CONSTRAINT(S)``, ``PROPERTY``/``PROPERTIES``, ``SYMMETRY``
 and ``VIEW`` with TLC's comment syntax, and records the source line of every
 name it reads so that errors point at it.  The stanzas the port cannot
-check (a VIEW other than ParityView, PROPERTY, expression invariants) are
-parsed here and refused in ``check.resolve_check_config``.
+check (a VIEW other than ParityView, any VIEW with ``--faithful``,
+PROPERTY, expression invariants) are parsed here and refused in
+``check.resolve_check_config``.
 """
 
 from __future__ import annotations

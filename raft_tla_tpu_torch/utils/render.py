@@ -90,6 +90,22 @@ def render_state(s, bounds: Bounds, indent: str = "    ") -> str:
         "/\\ matchIndex = " + _fn(bounds, lambda i: "(" + " @@ ".join(
             f"{_srv(j)} :> {s.matchIndex[i][j]}" for j in range(n)) + ")"),
     ]
+    if s.elections is not None:
+        # Faithful mode: the history variables (elections raft.tla:39,
+        # allLogs raft.tla:44, voterLog raft.tla:77).
+        lines.append("/\\ elections = {" + ", ".join(
+            f"[eterm |-> {et}, eleader |-> {_srv(el)}, elog |-> {_log(lg)}, "
+            f"evotes |-> {_bitmask(ev, bounds)}, "
+            "evoterLog |-> (" + " @@ ".join(
+                f"{_srv(j)} :> {_log(vl[j])}" for j in range(n)
+                if vl[j] is not None) + ")]"
+            for et, el, lg, ev, vl in s.elections) + "}")
+        lines.append("/\\ allLogs = {" + ", ".join(
+            _log(l) for l in s.allLogs) + "}")
+        lines.append("/\\ voterLog = " + _fn(
+            bounds, lambda i: "(" + " @@ ".join(
+                f"{_srv(j)} :> {_log(s.vLog[i][j])}" for j in range(n)
+                if s.vLog[i][j] is not None) + ")"))
     return "\n".join(indent + ln for ln in lines)
 
 

@@ -78,8 +78,15 @@ ELECTION_2S = ["--spec", "election", "--max-term", "2", "--max-log", "0",
     (["--spec", "full", "--max-term", "2", "--max-log", "1",
       "--max-msgs", "1", "--view", "deadvotes", "--coverage"],
      "NoTwoLeaders", "s1, s2", "ref", 0, ""),
+    (ELECTION_2S + ["--faithful", "--max-elections", "4", "--coverage"],
+     "NoTwoLeaders ElectionSafetyHist LeaderCompletenessHist "
+     "AllLogsPrefixClosed", "s1, s2", "ref", 0, ""),
+    (["--spec", "election", "--max-term", "2", "--max-log", "0",
+      "--max-msgs", "1", "--faithful", "--max-elections", "2",
+      "--view", "deadvotes", "--coverage"], "ElectionSafetyHist", "s1, s2",
+     "ref", 0, "SYMMETRY Server\n"),
 ], ids=["pass", "deadlock", "violation", "symmetry-stanza", "symmetry-flag",
-        "view"])
+        "view", "faithful", "faithful-symmetry-view"])
 def test_cli_result_lines_match_jax_cli(tmp_path, args, invariant, servers,
                                        engine, want_code, extra):
     cfg = write_cfg(tmp_path / "m.cfg", servers, invariant, extra)
@@ -92,7 +99,7 @@ def test_cli_result_lines_match_jax_cli(tmp_path, args, invariant, servers,
 def test_cli_refuses_what_is_not_ported(tmp_path):
     cfg = write_cfg(tmp_path / "m.cfg")
     with pytest.raises(SystemExit) as e:
-        _run(cli.main, [cfg, "--faithful"])
+        _run(cli.main, [cfg, "--emit-tlc", "out.tla"])
     assert e.value.code == 2
     view = write_cfg(tmp_path / "v.cfg", extra="VIEW MyView\n")
     code, _, err = _run(cli.main, [view, "--device", "cpu"])

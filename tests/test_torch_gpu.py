@@ -23,6 +23,9 @@ pytestmark = pytest.mark.gpu
 
 INVS = ("NoTwoLeaders", "NaiveNoTwoLeaders", "LogMatching",
         "CommittedWithinLog", "LeaderCompleteness")
+HIST = ("ElectionSafetyHist", "LeaderCompletenessHist", "AllLogsPrefixClosed")
+FAITHFUL = dict(n_servers=3, n_values=2, max_term=2, max_log=1, max_msgs=2,
+                history=True)
 
 
 @pytest.fixture
@@ -64,22 +67,28 @@ def test_step_kernel_matches_plain_step(cuda, kw, spec):
      "full", (), "deadvotes"),
     (dict(n_servers=4, n_values=1, max_term=2, max_log=0, max_msgs=1),
      "election", ("Server",), None),
+    (FAITHFUL, "full", (), None),
+    (FAITHFUL, "full", ("Server", "Value"), None),
+    (FAITHFUL, "full", ("Server",), "deadvotes"),
 ], ids=["full-3s2v-ServerxValue-deadvotes", "full-3s2v-deadvotes",
-        "election-4s-Server"])
+        "election-4s-Server", "faithful-3s2v", "faithful-3s2v-ServerxValue",
+        "faithful-3s2v-Server-deadvotes"])
 def test_step_kernel_dedup_key_matches_plain_step(cuda, kw, spec, axes,
                                                  view):
-    """K1's orbit and view stage: the same contract, keys included."""
+    """K1's orbit and view stage, and in faithful mode its history stage:
+    the same contract, keys included."""
     from raft_tla_tpu_torch.ops import symmetry as sym
     b = Bounds(**kw)
-    eng = DeviceEngine(CheckConfig(bounds=b, spec=spec, invariants=INVS,
+    invs = INVS + HIST if b.history else INVS
+    eng = DeviceEngine(CheckConfig(bounds=b, spec=spec, invariants=invs,
                                    chunk=512), Capacities(n_states=1 << 18))
     res = eng.check(max_chunks=40)
     rows = eng.carry["store"][:min(res.n_states, 2048)]
     before = sym.plain_calls
-    got = pallas_step.build_step(b, spec, INVS, cuda, symmetry=axes,
+    got = pallas_step.build_step(b, spec, invs, cuda, symmetry=axes,
                                  view=view)(rows)
     assert sym.plain_calls == before           # the card path: no plain key
-    want = kernels.build_step(b, spec, INVS, axes, view)(rows)
+    want = kernels.build_step(b, spec, invs, axes, view)(rows)
     val = want["valid"]
     assert torch.equal(got["valid"], val)
     for k in ("svecs", "overflow", "fp_hi", "fp_lo", "inv_ok", "con_ok"):
@@ -91,7 +100,7 @@ def test_step_kernel_dedup_key_matches_plain_step(cuda, kw, spec, axes,
 
 def test_fingerprint_kernel_matches_plain_version(cuda):
     rng = np.random.default_rng(5)
-    for W in (57, 60, 1):
+    for W in (57, 60, 110, 1):
         rows = torch.as_tensor(rng.integers(-2**31, 2**31, size=(3001, W),
                                             dtype=np.int64).astype(np.int32),
                                device=cuda)
