@@ -13,13 +13,15 @@ Phases (each prints a line; any failure exits non-zero):
 
 0. the card, torch and CUDA versions; the kernel builds, in parallel, with
    the ptxas lines of the flagship and the 5- and 6-server layouts, parity
-   and faithful;
+   and faithful, and K1's occupancy (blocks and warps a multiprocessor
+   holds) at the two flagship layouts;
 1. K1 (csrc/step.cu) against the plain step on reachable rows: four configs
-   without symmetry, then the dedup-key stage at |G| = 6, 12, 24, 120 and
-   720 and with the deadvotes view; then faithful mode (the history stage)
-   at |G| = 1, 6, 12 (rank maps), 6 with deadvotes, and 120;
+   without symmetry, then the dedup-key stage at |G| = 6 (also on 8,191
+   rows, a ragged last block), 12, 24, 120 and 720 and with the deadvotes
+   view; then faithful mode (the history stage) at |G| = 1, 6, 12 (rank
+   maps), 6 with deadvotes, and 120;
 2. K2 (csrc/fingerprint.cu) against the plain fingerprint, 1,048,576 rows
-   at W = 60 and at W = 110;
+   at W = 60, 110 and 113, and 1,048,573 rows at W = 60;
 3. verified counts through the CLI entry (plain, SYMMETRY, VIEW and
    faithful), the seeded violations (exit 12, traces replay through the
    interpreter, the faithful trace shows the history) and a deadlock
@@ -41,7 +43,10 @@ Phases (each prints a line; any failure exits non-zero):
    and K1 against the plain step on rows from every level;
 7. the faithful flagship, ``runs/MC3s2v.cfg --faithful`` (SYMMETRY Server,
    W = 113): to exhaustion, its store audit, and K1 against the plain step
-   on rows from every level.  No reference count exists for it.
+   on rows from every level.  No reference count exists for it;
+8. 300 chunks of the phase-5 and phase-7 runs (after their first 3,000
+   and 5,000) under torch.profiler: the card's time by kernel, K1's kernel
+   time per chunk inside the engine, and the card's idle share.
 
 The line before the last is ``{"kernels": [...]}``; the last line is
 ``{"ok": true, "device": {...}}``.  Tolerance everywhere: bit-exact (all
@@ -106,10 +111,13 @@ def say(msg: str) -> None:
     print(msg, flush=True)
 
 
-def cuda_ms(fn, reps: int, trials: int = 5) -> tuple:
+def cuda_ms(fn, reps: int, trials: int = 5, hold: bool = True) -> tuple:
     """``(median, max - min)`` over ``trials`` of the mean milliseconds of
     ``fn`` across ``reps`` back-to-back launches (CUDA events, after
-    ``reps`` warm-up launches)."""
+    ``reps`` warm-up launches).  With ``hold`` the card first spins for
+    about 0.2 ms a launch (``torch.cuda._sleep``) while the host queues
+    the launches, so the time is the card's and not the host's cost of
+    calling the wrapper (tens of microseconds a call)."""
     for _ in range(reps):
         fn()
     torch.cuda.synchronize()
@@ -117,6 +125,8 @@ def cuda_ms(fn, reps: int, trials: int = 5) -> tuple:
     for _ in range(trials):
         a = torch.cuda.Event(enable_timing=True)
         b = torch.cuda.Event(enable_timing=True)
+        if hold:
+            torch.cuda._sleep(400_000 * reps)
         a.record()
         for _ in range(reps):
             fn()
@@ -126,10 +136,25 @@ def cuda_ms(fn, reps: int, trials: int = 5) -> tuple:
     return float(np.median(times)), max(times) - min(times)
 
 
-def step_bytes(B: int, A: int, W: int, n_inv: int) -> int:
-    """Bytes one K1 launch must move: the rows read once, every output
-    written once (int32 svecs and keys, one byte per bool)."""
-    return B * W * 4 + B * A * (W * 4 + 8 + 3 + n_inv)
+def host_ms(fn, reps: int) -> float:
+    """Host milliseconds per call of ``fn`` while the card is held busy, so
+    the calls never wait for it: the wrapper's own cost."""
+    torch.cuda.synchronize()
+    torch.cuda._sleep(400_000 * reps)
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        fn()
+    t = (time.perf_counter() - t0) / reps * 1e3
+    torch.cuda.synchronize()
+    return t
+
+
+def step_bytes(B: int, A: int, W: int, n_inv: int, n_valid: int) -> int:
+    """Bytes one K1 launch must move under the step contract: the rows read
+    once, the ``valid`` byte of every lane, and on each of the ``n_valid``
+    valid lanes its int32 successor and keys and its ``overflow``,
+    ``inv_ok`` and ``con_ok`` bytes."""
+    return B * W * 4 + B * A + n_valid * (W * 4 + 8 + 2 + n_inv)
 
 
 def write_cfg(name: str, servers: int, values: int, invariants: str,
@@ -167,7 +192,7 @@ def bounds_of(key: tuple):
 
 def phase0():
     from raft_tla_tpu_torch.ops import build, pallas_fp, pallas_step
-    from raft_tla_tpu_torch.config import Bounds
+    from raft_tla_tpu_torch.ops import state as st
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True, timeout=60)
@@ -198,6 +223,14 @@ def phase0():
             pallas_step.SOURCE, d).replace("\n", " | "))
     say("ptxas fingerprint: " + build.ptxas_report(
         pallas_fp.SOURCE).replace("\n", " | "))
+    for key in ((3, 2, 2, 1, 2), (3, 2, 2, 1, 2, 6)):
+        b = bounds_of(key)
+        blocks, smem = pallas_step.occupancy(b, "full", ("Server",),
+                                             MAIN_CHUNK)
+        say(f"occupancy step W={st.Layout.of(b).width} |G| 6, "
+            f"{MAIN_CHUNK} rows: {blocks} blocks of 128 threads, "
+            f"{blocks * 4} resident warps per SM, {smem} bytes of shared "
+            f"memory per block")
     return smi.stdout.strip()
 
 
@@ -232,14 +265,15 @@ def compare_step(out, ref) -> tuple:
 def step_bound(out, n_inv: int, group: int) -> tuple:
     """K1's bound for one launch: ``(ms, "bytes" or "operations", bytes)``.
 
-    Bytes: the rows read once and every output written once.  Operations:
+    Bytes: :func:`step_bytes`, with the valid lanes of this launch.
+    Operations:
     the fingerprint arithmetic of the dedup key alone (two multiply-adds a
     word per lane of the key, plus the finaliser), on every valid lane
     for each of the ``group`` elements of its orbit scan: a lower bound, the
     permutations and the sort network uncounted."""
     B, A, W = out["svecs"].shape
-    nbytes = step_bytes(B, A, W, n_inv)
     n_valid = int(out["valid"].sum())
+    nbytes = step_bytes(B, A, W, n_inv, n_valid)
     t_bytes = nbytes / HBM_BYTES_PER_S
     t_ops = n_valid * group * (4 * W + 12) / INT_OPS_PER_S
     by = "bytes" if t_bytes >= t_ops else "operations"
@@ -275,6 +309,8 @@ def phase1(results):
          (), None, MAIN_CHUNK),
         ("full 3s/2v t2 l1 m2, Server", flag, "full", full5, None,
          ("Server",), None, MAIN_CHUNK),
+        ("full 3s/2v t2 l1 m2, Server, ragged", flag, "full", full5, None,
+         ("Server",), None, MAIN_CHUNK - 1),
         ("full 3s/2v t2 l1 m2, Server x Value", flag, "full", full5, None,
          ("Server", "Value"), None, MAIN_CHUNK),
         ("full 3s/2v t2 l1 m2, Server, deadvotes", flag, "full", full5, None,
@@ -312,19 +348,21 @@ def phase1(results):
         P, Q = sym.group_sizes(b, axes)
         reps = 20 if P * Q <= 24 else 3
         ms, spread = cuda_ms(lambda: k1(rows), reps)
+        host = host_ms(lambda: k1(rows), reps)
         plain_ms, _ = cuda_ms(lambda: plain(rows), 1 if P * Q > 24 else 2,
-                              trials=1 if P * Q > 24 else 3)
+                              trials=1 if P * Q > 24 else 3, hold=False)
         bound, by, nbytes = step_bound(out, len(invs), P * Q)
         say(f"phase 1: K1 {name}: |G| {P * Q}, rows {B} lanes {B * A} "
             f"(A={A}, W={W}) valid {int(ref['valid'].sum())} mismatches "
-            f"{bad} max_abs_err {err}; K1 {ms:.4f} ms (spread {spread:.4f}), "
-            f"plain {plain_ms:.2f} ms per launch; bound {bound:.4f} ms "
+            f"{bad} max_abs_err {err}; K1 {ms:.4f} ms (spread {spread:.4f}; "
+            f"the host's call {host:.4f} ms), plain {plain_ms:.2f} ms per "
+            f"launch; bound {bound:.4f} ms "
             f"({by}; {nbytes} bytes)")
         if bad:
             fail(f"K1 disagrees with the plain step on {name}")
         results["step_cases"].append(dict(
             name=name, group=P * Q, rows=B, ms=ms, spread=spread,
-            plain_ms=plain_ms, bound_ms=bound, bound_by=by))
+            host_ms=host, plain_ms=plain_ms, bound_ms=bound, bound_by=by))
         if name == "full 3s/2v t2 l1 m2, Server":   # the phase-5 layout
             results["step"] = dict(
                 mismatches=bad, max_abs_err=err, ms=ms, plain_ms=plain_ms,
@@ -335,14 +373,16 @@ def phase1(results):
 
 
 def phase2(results):
-    # The flagship's row width (the kernels line reports it) and phase 6's.
+    # The flagship's row width (the kernels line reports it), phase 6's and
+    # phase 7's, and a row count that is not a multiple of a block's rows.
     results["fingerprint"] = fingerprint_case(60)
     fingerprint_case(110)
+    fingerprint_case(113)
+    fingerprint_case(60, (1 << 20) - 3)
 
 
-def fingerprint_case(W: int) -> dict:
+def fingerprint_case(W: int, B: int = 1 << 20) -> dict:
     from raft_tla_tpu_torch.ops import fingerprint as fpr, pallas_fp
-    B = 1 << 20
     rng = np.random.default_rng(20260501)
     rows = torch.as_tensor(rng.integers(-2**31, 2**31, size=(B, W),
                                         dtype=np.int64).astype(np.int32),
@@ -355,7 +395,8 @@ def fingerprint_case(W: int) -> dict:
     err = int(torch.maximum((hi.to(torch.int64) - rh).abs(),
                             (lo.to(torch.int64) - rl).abs()).max())
     ms, spread = cuda_ms(lambda: pallas_fp.fingerprint_rows(rows), 50)
-    plain_ms, _ = cuda_ms(lambda: fpr.fingerprint(rows, consts), 5, trials=3)
+    plain_ms, _ = cuda_ms(lambda: fpr.fingerprint(rows, consts), 5, trials=3,
+                          hold=False)
     nbytes = B * W * 4 + 2 * B * 4
     t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, B * (4 * W + 12) / INT_OPS_PER_S
     bound = max(t_bytes, t_ops) * 1e3
@@ -540,8 +581,9 @@ def report_run(label: str, eng, res, wall: float, launches: dict) -> None:
         f"chunks {chunks}, K1 launches {launches['step']}, K2 launches "
         f"{launches['fingerprint']}, plain orbit-key calls "
         f"{launches['plain orbit key']}, plain step calls "
-        f"{launches['plain step']}; dedup "
-        f"{1e3 * st['dedup_s'] / chunks:.3f} ms/chunk; host syncs "
+        f"{launches['plain step']}; K1 {1e3 * st['step_s'] / chunks:.4f} "
+        f"ms/chunk, dedup {1e3 * st['dedup_s'] / chunks:.3f} ms/chunk; "
+        f"host syncs "
         f"{st['syncs'] / chunks:.2f}/chunk; peak device memory "
         f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
 
@@ -705,6 +747,54 @@ def phase7(results):
     results["launches_phase7"] = launches
 
 
+def profile_window(label: str, argv: list, skip: int, window: int) -> None:
+    """``window`` chunks of the CLI run ``argv``, after its first ``skip``,
+    under torch.profiler: the card's time by kernel, K1's per chunk, and
+    the card's idle share of the window's wall (host clock, synchronised;
+    the kernels run on one stream, so their times add up to the busy
+    time)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    from raft_tla_tpu_torch import check
+    from raft_tla_tpu_torch.device_engine import Capacities, DeviceEngine
+    args = check.build_argparser().parse_args([str(a) for a in argv])
+    eng = DeviceEngine(check.config_of(args),
+                       Capacities(n_states=args.cap, levels=args.levels))
+    eng.check(max_chunks=skip)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.monotonic()
+        eng._run(max_chunks=window)
+        torch.cuda.synchronize()
+        wall = (time.monotonic() - t0) * 1e3
+    dev = {}
+    for e in prof.key_averages():
+        if e.device_type == DeviceType.CUDA and e.self_device_time_total > 0:
+            dev[e.key] = e.self_device_time_total / 1e3       # ms
+    busy = sum(dev.values())
+    if not dev:
+        say(f"{label}: the profiler showed no device time (not measured)")
+        return
+    k1 = sum(t for k, t in dev.items() if "step_kernel" in k)
+    top = sorted(dev.items(), key=lambda kv: -kv[1])[:8]
+    say(f"{label}: chunks {skip}-{skip + window - 1}, wall "
+        f"{wall / window:.4f} ms/chunk, card busy {busy / window:.4f} "
+        f"ms/chunk, idle share {1 - busy / wall:.4f}; K1 kernel "
+        f"{k1 / window:.4f} ms/chunk; top kernels (ms/chunk): " + "; ".join(
+            f"{k[:60]} {t / window:.4f}" for k, t in top))
+    del eng
+    torch.cuda.empty_cache()
+
+
+def phase8() -> None:
+    """The flagship and the faithful flagship, mid-run, profiled."""
+    profile_window("phase 8: phase 5's run", [FLAGSHIP_CFG, *FLAGSHIP_ARGS],
+                   3000, 300)
+    profile_window("phase 8: phase 7's run",
+                   [FLAGSHIP_CFG, *FAITHFUL_FLAGSHIP_ARGS], 5000, 300)
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device visible to torch", file=sys.stderr)
@@ -723,6 +813,7 @@ def main() -> int:
     phase5(results)
     phase6(results)
     phase7(results)
+    phase8()
     results["step"]["max_abs_err"] = max(results["step"]["max_abs_err"],
                                          results.get("step_err", 0))
     # launches: the flagship's run (phase 5) for K1; for K2, which keys

@@ -181,6 +181,17 @@ def main(argv=None) -> int:
     return run(argv)[0]
 
 
+def config_of(args) -> CheckConfig:
+    """The ``CheckConfig`` of parsed CLI arguments (the cfg file read)."""
+    from raft_tla_tpu_torch.utils.cfgparse import load_cfg
+    return resolve_check_config(
+        load_cfg(args.cfg), spec=args.spec, max_term=args.max_term,
+        max_log=args.max_log, max_msgs=args.max_msgs, max_dup=args.max_dup,
+        chunk=args.chunk, deadlock=args.deadlock, symmetry=args.symmetry,
+        view=args.view, path=args.cfg, faithful=args.faithful,
+        max_elections=args.max_elections)
+
+
 def run(argv=None) -> tuple:
     """The CLI: ``(exit code, engine or None, result or None)``; the
     engine is returned for callers that inspect it after the run."""
@@ -194,14 +205,8 @@ def run(argv=None) -> tuple:
         p.error(f"--engine {args.engine} is not ported to raft_tla_tpu_torch "
                 "yet (ROADMAP.md queue A: other engines); only 'device'")
     from raft_tla_tpu_torch import __version__
-    from raft_tla_tpu_torch.utils.cfgparse import load_cfg
     try:
-        config = resolve_check_config(
-            load_cfg(args.cfg), spec=args.spec, max_term=args.max_term,
-            max_log=args.max_log, max_msgs=args.max_msgs,
-            max_dup=args.max_dup, chunk=args.chunk, deadlock=args.deadlock,
-            symmetry=args.symmetry, view=args.view, path=args.cfg,
-            faithful=args.faithful, max_elections=args.max_elections)
+        config = config_of(args)
     except (OSError, ValueError, NotImplementedError) as e:
         print(f"Error: {e}", file=sys.stderr)
         return EXIT_ERROR, None, None

@@ -11,18 +11,55 @@
 // sort), pack, the dedup key (VIEW, then the orbit-minimal fingerprint
 // under SYMMETRY), invariants, StateConstraint.
 //
-// Design: one thread per (row, action lane).  A block holds R = 256 / A
-// rows; it copies their W words once into shared memory, and each of the A
-// threads of a row unpacks the row into a struct, applies its lane's
-// family (read from a small per-lane table), and finishes the candidate
-// without it ever touching device memory between stages: every output is
-// written once.  The layout's sizes (N servers, L log capacity, S message
-// slots, and in faithful mode E election slots, WA allLogs words and the
-// log universe's T terms and V values, hence W) are compile-time macros;
-// build.py compiles one library per layout.  A parity layout has E = 0 and
-// compiles none of the history code.  The struct sits in the thread's
-// local memory, which stays in L1 (see `rd`/`wr` below for why not in
-// registers).
+// What bounds it on the H100.  Not every lane is enabled: on the flagship
+// universe 34-42% of the (row, action lane) pairs of stored rows are
+// valid, and the contract below needs outputs only there.  So the bytes it
+// must move are the rows read once, one `valid` byte per lane and, per
+// valid lane, the packed successor, its keys and masks: about 40 MB per
+// 8,192-row launch at W = 60.  The integer work is |G| orbit elements per
+// valid lane, each about 2W multiply-adds plus relabels and the slot sort
+// networks; it passes the bytes at a few group elements.  Neither bound is
+// near when every lane is finished on warps whose lanes run different
+// families and are in good part invalid: then latency and divergence set
+// the time.  So the design runs the expensive part only where it is
+// needed, on convergent warps.
+//
+// Design: a block owns R rows (R = 32, fewer when the launch has few rows,
+// so that the grid still covers the card) and runs three phases.
+//
+// 1. Guards.  The rows are copied once into shared memory.  Thread t takes
+//    the pairs p = t, t + T, ... with p = a * R + r, so at R = 32 a warp
+//    evaluates one action lane over 32 rows and the family's branch is
+//    uniform across it.  `apply<false>` reads the parent row in shared
+//    memory in place and returns `valid`; it writes nothing (every guard
+//    reads only the unprimed state).  Valid pairs are compacted into a
+//    shared queue (warp ballot, one shared atomic per warp), and the
+//    block's `valid` bytes leave as one contiguous run.
+// 2. Finish.  The block's threads take the queued pairs.  Each owner copies
+//    its pair's row into its own slot of shared memory, applies the action
+//    (`apply<true>`), the allLogs union, canonicalize, and leaves the
+//    canonical successor there: the struct `St` is the packed row, word
+//    for word, so the slot is the staged output.  The orbit key, the
+//    invariants and the constraint read the slot.  When a block has fewer
+//    pairs than threads, `split` threads (a power of two, at most the
+//    |P| server permutations) share one pair: each scans every split-th
+//    server permutation (with all of its value permutations), and a
+//    shuffle takes the minimum, so a launch with few valid pairs or a
+//    large group still keeps its threads busy.
+// 3. Write.  Each warp writes its staged successors with neighbouring
+//    threads on neighbouring words (16-byte stores when W is a multiple of
+//    4).  Keys and masks go straight to their lanes: valid lanes are
+//    sparse, so they would not form contiguous runs.
+//
+// Shared memory holds the rows and the slots at an odd stride (W | 1
+// words), so 32 threads reading one field of 32 states hit 32 banks.  The
+// fingerprint constants are a kernel parameter: every fold reads them at a
+// compile-time word offset, so they are constant-bank operands of the
+// multiply-adds and cost no load.  The layout's sizes (N servers, L log
+// capacity, S message slots, and in faithful mode E election slots, WA
+// allLogs words and the log universe's T terms and V values, hence W) are
+// compile-time macros; build.py compiles one library per layout.  A parity
+// layout has E = 0 and compiles none of the history code.
 //
 // Faithful mode (ops/state.HISTORY_FIELDS, ops/loguniv.py): logs enter the
 // history as ranks in the bounded log universe, rank = off[len] + the
@@ -34,7 +71,7 @@
 // first free election slot unless an equal record is present, and a full
 // table is the lane's overflow.  allLogs' is the parent's allLogs with the
 // ranks of the PARENT's logs added (raft.tla:464-465), the same on every
-// lane, so it is computed once per thread before the action runs.
+// lane, so it is computed from the parent row before the action runs.
 //
 // The dedup key (ops/symmetry.build_orbit_fp, ops/kernels.build_step):
 // key = min over g in [0, P*Q) of fp(canonicalize(g(view(s)))), the min
@@ -42,7 +79,7 @@
 // (else 1), Q = V! with Value symmetry (else 1), g = 0 the identity, so at
 // P*Q = 1 without a view the key is the plain fingerprint of the packed
 // successor and one code path serves every case.  The permuted state is
-// never built: each permuted word is read from the struct at its source
+// never built: each permuted word is read from the slot at its source
 // index and folded into the fingerprint accumulators in place; only the S
 // message slots are remapped into registers and re-sorted.  The server
 // part of the fold is shared by the Q value permutations of one server
@@ -54,36 +91,25 @@
 // and derives the reference's other tables in the thread: votedFor
 // relabel p[j] + 1, the vote-bitmask permutation (n bit moves), the
 // message src/dst relabel and the value relabel q[v - 1] + 1.  The
-// reference's stacked tables (inv_idx, vf_map, bit_lut, p_lut, vlut,
-// e_lut) take 720 x 93 ints = 268 KB at 6 servers, over the 227 KB of
-// shared memory a block may use; the permutations alone take P*2n + Q*V
-// bytes (8.7 KB at 6 servers), copied into shared memory by each block.
-// All lanes of a block walk g in step, so each table read is a broadcast.
+// permutations take P*2n + Q*V bytes (8.7 KB at 6 servers), copied into
+// shared memory by each block; the threads of a pair group walk them in
+// step, so most table reads are broadcasts.
 //
 // Faithful mode under Value symmetry also needs the Q rank maps
 // (rank -> rank of the value-permuted log, ops/symmetry.kernel_rank_maps),
 // int16 [Q][U].  They stay in device memory and are read through the
-// read-only cache (__ldg), not copied to shared memory: at U = 1,024 and
-// V = 5 they take 240 KB, over a block's shared memory, while the flagship
-// layout's 2 x 43 entries (172 bytes) stay hot in L1 either way.  Lanes
-// read them at data-dependent ranks, so a shared copy would buy no
-// broadcast.  Server permutations fix allLogs, eLog, eTerm and mlog (ranks
-// hold no server ids); voterLog reorders both axes, occupied election
-// slots map eLeader through p and bit-permute eVotes, eVLog reorders its
-// columns.  The election slots are remapped into registers and re-sorted
-// per group element, like the message slots.
-//
-// What bounds it on the H100: bytes written at |G| = 1 (each lane writes
-// its packed successor, W int32, plus its masks and keys: about
-// A * (W + 5) * 4 bytes per input row of W * 4 bytes); integer work at
-// large |G| (each lane spends |G| x (about 2W multiply-adds plus the
-// relabels and the S-slot sort network)), which passes the bytes at a few
-// dozen elements.  Lanes of a warp run different families and diverge;
-// that costs issue slots, not bytes.
+// read-only cache (__ldg): at U = 1,024 and V = 5 they take 240 KB, over a
+// block's shared memory, while the flagship layout's 2 x 43 entries stay
+// hot in L1 either way.  Server permutations fix allLogs, eLog, eTerm and
+// mlog (ranks hold no server ids); voterLog reorders both axes, occupied
+// election slots map eLeader through p and bit-permute eVotes, eVLog
+// reorders its columns.  The election slots are remapped into registers
+// and re-sorted per group element, like the message slots.
 //
 // Contract (held against the plain step): `valid` equal on every lane;
-// every other output bit-equal where `valid` is true.  Invalid lanes are
-// written as zeros (the engine never reads them).
+// every other output bit-equal where `valid` is true.  The other outputs
+// of an invalid lane are left unwritten (the engine reads them only where
+// `valid` is set); the plain step writes zeros there.
 #include <cuda_runtime.h>
 
 #include <cstdint>
@@ -142,9 +168,16 @@ enum Invariant {
 };
 
 constexpr int kMaxInv = 8;
-constexpr int kThreads = 256;
-constexpr int kMaxValues = 15;   // the 4-bit message value field
+constexpr int kThreads = 128;      // threads per block
+// Blocks a multiprocessor should hold at once (__launch_bounds__): caps a
+// thread's registers at 65,536 / (128 * 4) = 128.
+constexpr int kMinBlocks = 4;
+constexpr int kMaxRows = 32;       // rows per block, at most
+constexpr int kMaxLanes = 256;     // action lanes per row, at most
+constexpr int kWp = W | 1;         // shared-memory stride of a row or slot
+constexpr int kMaxValues = 15;     // the 4-bit message value field
 constexpr int kViewDeadvotes = 1;  // models/views.KERNEL_CODES
+constexpr unsigned kFull = 0xFFFFFFFFu;
 
 struct InvList {
   int n;
@@ -155,6 +188,15 @@ struct Limits {
   int max_term, max_log, max_msgs, max_dup;
 };
 
+// The fingerprint's per-position constants (ops/fingerprint.lane_constants),
+// passed by value: read at compile-time offsets, they stay in the constant
+// bank.
+struct Consts {
+  uint32_t c1[W], c2[W];
+};
+
+// The state, field by field in ops/state.STATE_FIELDS order: the packed row
+// itself, so a row copied into shared memory is read and written in place.
 struct St {
   int role[N], term[N], voted[N], commit[N], loglen[N];
   int logterm[N][L], logval[N][L];
@@ -166,16 +208,13 @@ struct St {
   int eterm[E], eleader[E], elog[E], evotes[E], evlog[E][N];
 #endif
 };
+static_assert(sizeof(St) == W * sizeof(int), "St must be the packed row");
 
 // -- struct access at a runtime index ---------------------------------------
 //
-// A runtime index reads and writes the struct's arrays directly, so the
-// compiler keeps the struct in local memory (L1-resident, a few hundred
-// bytes a thread).  The first form of this kernel selected with fully
-// unrolled compare-and-assign loops to keep the struct in registers; ptxas
-// at its default optimization level gave wrong lanes for it on sm_90a
-// (right under -Xptxas -O0, -G, and a host emulation of the same source),
-// so it was replaced by this form, which is right at the same speed.
+// The state lives in shared memory, so a runtime index reads and writes it
+// directly.  The write helpers take the pass: `kW` false is the guard pass,
+// which evaluates `valid` from the parent row in place and writes nothing.
 
 __device__ __forceinline__ int clampi(int i, int m) {
   return i < 0 ? 0 : (i > m - 1 ? m - 1 : i);
@@ -193,27 +232,28 @@ __device__ __forceinline__ int rd2(const int (&a)[M][K], int i, int j) {
 }
 
 // a[i] = v; an index out of range writes nothing (a one-hot update).
-template <int M>
+template <bool kW, int M>
 __device__ __forceinline__ void wr(int (&a)[M], int i, int v) {
-  if (i >= 0 && i < M) a[i] = v;
+  if constexpr (kW) {
+    if (i >= 0 && i < M) a[i] = v;
+  }
 }
 
-template <int M, int K>
+template <bool kW, int M, int K>
 __device__ __forceinline__ void wr2(int (&a)[M][K], int i, int j, int v) {
-#pragma unroll
-  for (int x = 0; x < M; ++x)
-#pragma unroll
-    for (int y = 0; y < K; ++y)
-      if (x == i && y == j) a[x][y] = v;
+  if constexpr (kW) {
+    if (i >= 0 && i < M && j >= 0 && j < K) a[i][j] = v;
+  }
 }
 
-template <int M, int K>
+template <bool kW, int M, int K>
 __device__ __forceinline__ void wr_row(int (&a)[M][K], int i, int v) {
+  if constexpr (kW) {
+    if (i >= 0 && i < M) {
 #pragma unroll
-  for (int x = 0; x < M; ++x)
-#pragma unroll
-    for (int y = 0; y < K; ++y)
-      if (x == i) a[x][y] = v;
+      for (int y = 0; y < K; ++y) a[i][y] = v;
+    }
+  }
 }
 
 // -- message fields: ops/msgbits.py ----------------------------------------
@@ -249,6 +289,7 @@ __device__ __forceinline__ int pack_lo(int c, int d, int e, int f,
 // -- bag operations (raft.tla:106-130) -------------------------------------
 
 // WithMessage; returns the overflow flag (no free slot for a new message).
+template <bool kW>
 __device__ __forceinline__ bool bag_add(St& s, int hi, int lo) {
   bool exists = false, has_empty = false;
 #pragma unroll
@@ -256,41 +297,47 @@ __device__ __forceinline__ bool bag_add(St& s, int hi, int lo) {
     exists |= s.mhi[k] == hi && s.mlo[k] == lo && s.mcnt[k] > 0;
     has_empty |= s.mcnt[k] == 0;
   }
-  bool seen_empty = false;
+  if constexpr (kW) {
+    bool seen_empty = false;
 #pragma unroll
-  for (int k = 0; k < S; ++k) {
-    const bool match = s.mhi[k] == hi && s.mlo[k] == lo && s.mcnt[k] > 0;
-    const bool empty = s.mcnt[k] == 0;
-    const bool ins = !exists && empty && !seen_empty;
-    seen_empty |= empty;
-    if (ins) {
-      s.mhi[k] = hi;
-      s.mlo[k] = lo;
+    for (int k = 0; k < S; ++k) {
+      const bool match = s.mhi[k] == hi && s.mlo[k] == lo && s.mcnt[k] > 0;
+      const bool empty = s.mcnt[k] == 0;
+      const bool ins = !exists && empty && !seen_empty;
+      seen_empty |= empty;
+      if (ins) {
+        s.mhi[k] = hi;
+        s.mlo[k] = lo;
+      }
+      s.mcnt[k] += static_cast<int>(match) + static_cast<int>(ins);
     }
-    s.mcnt[k] += static_cast<int>(match) + static_cast<int>(ins);
   }
   return !exists && !has_empty;
 }
 
 // WithoutMessage; a no-op when absent.
+template <bool kW>
 __device__ __forceinline__ void bag_remove(St& s, int hi, int lo) {
+  if constexpr (kW) {
 #pragma unroll
-  for (int k = 0; k < S; ++k) {
-    const bool match = s.mhi[k] == hi && s.mlo[k] == lo && s.mcnt[k] > 0;
-    const int c2 = s.mcnt[k] - static_cast<int>(match);
-    if (match && c2 == 0) {
-      s.mhi[k] = 0;
-      s.mlo[k] = 0;
+    for (int k = 0; k < S; ++k) {
+      const bool match = s.mhi[k] == hi && s.mlo[k] == lo && s.mcnt[k] > 0;
+      const int c2 = s.mcnt[k] - static_cast<int>(match);
+      if (match && c2 == 0) {
+        s.mhi[k] = 0;
+        s.mlo[k] = 0;
+      }
+      s.mcnt[k] = c2;
     }
-    s.mcnt[k] = c2;
   }
 }
 
 // Reply: remove the request, then add the response.
+template <bool kW>
 __device__ __forceinline__ bool reply(St& s, int resp_hi, int resp_lo,
                                       int req_hi, int req_lo) {
-  bag_remove(s, req_hi, req_lo);
-  return bag_add(s, resp_hi, resp_lo);
+  bag_remove<kW>(s, req_hi, req_lo);
+  return bag_add<kW>(s, resp_hi, resp_lo);
 }
 
 __device__ __forceinline__ int last_term(const St& s, int i) {
@@ -368,6 +415,8 @@ __device__ __forceinline__ bool has_rank(const int (&mask)[WA], int r) {
 // -- the message handlers of Receive(m) (raft.tla:284-436) -----------------
 
 // Returns whether a branch was enabled; sets *ovf for the taken branch.
+// Every branch condition reads the unprimed state, before any write.
+template <bool kW>
 __device__ __forceinline__ bool receive(St& s, int slot, bool* ovf) {
   const int hi = rd(s.mhi, slot), lo = rd(s.mlo, slot);
   const int i = mdst(hi), j = msrc(hi);
@@ -375,9 +424,9 @@ __device__ __forceinline__ bool receive(St& s, int slot, bool* ovf) {
   const int ct = rd(s.term, i), role_i = rd(s.role, i);
   const int len_i = rd(s.loglen, i);
   if (mt > ct) {  // UpdateTerm (raft.tla:406-412): message kept
-    wr(s.term, i, mt);
-    wr(s.role, i, FOLLOWER);
-    wr(s.voted, i, 0);
+    wr<kW>(s.term, i, mt);
+    wr<kW>(s.role, i, FOLLOWER);
+    wr<kW>(s.voted, i, 0);
     return true;
   }
   if (mty == M_RVREQ) {  // HandleRequestVoteRequest (raft.tla:284-303)
@@ -391,24 +440,25 @@ __device__ __forceinline__ bool receive(St& s, int slot, bool* ovf) {
 #else
     const int mlog = 0;
 #endif
-    if (grant) wr(s.voted, i, j + 1);
-    *ovf = reply(s, pack_hi(M_RVRESP, ct, grant, 0, i, j),
-                 pack_lo(0, 0, 0, 0, mlog), hi, lo);
+    if (grant) wr<kW>(s.voted, i, j + 1);
+    *ovf = reply<kW>(s, pack_hi(M_RVRESP, ct, grant, 0, i, j),
+                     pack_lo(0, 0, 0, 0, mlog), hi, lo);
     return true;
   }
   if (mty == M_RVRESP && mt < ct) {  // DropStaleResponse (raft.tla:415-418)
-    bag_remove(s, hi, lo);
+    bag_remove<kW>(s, hi, lo);
     return true;
   }
   if (mty == M_RVRESP && mt == ct) {  // HandleRequestVoteResponse (:307-321)
     const int bit = shl(1, j);
-    wr(s.vresp, i, rd(s.vresp, i) | bit);
-    if (fa(hi) > 0) wr(s.vgrant, i, rd(s.vgrant, i) | bit);
+    wr<kW>(s.vresp, i, rd(s.vresp, i) | bit);
+    if (fa(hi) > 0) wr<kW>(s.vgrant, i, rd(s.vgrant, i) | bit);
 #if RT_E > 0
     // voterLog[i] @@ (j :> m.mlog): the existing entry wins (:316-317)
-    if (fa(hi) > 0 && rd2(s.vlog, i, j) == 0) wr2(s.vlog, i, j, fg(lo) + 1);
+    if (fa(hi) > 0 && rd2(s.vlog, i, j) == 0)
+      wr2<kW>(s.vlog, i, j, fg(lo) + 1);
 #endif
-    bag_remove(s, hi, lo);
+    bag_remove<kW>(s, hi, lo);
     return true;
   }
   if (mty == M_AEREQ) {  // HandleAppendEntriesRequest (raft.tla:327-389)
@@ -418,11 +468,11 @@ __device__ __forceinline__ bool receive(St& s, int slot, bool* ovf) {
         prev_idx == 0 || (prev_idx > 0 && prev_idx <= len_i &&
                           prev_term == rd2(s.logterm, i, prev_idx - 1));
     if (mt < ct || (mt == ct && role_i == FOLLOWER && !log_ok)) {  // reject
-      *ovf = reply(s, pack_hi(M_AERESP, ct, 0, 0, i, j), 0, hi, lo);
+      *ovf = reply<kW>(s, pack_hi(M_AERESP, ct, 0, 0, i, j), 0, hi, lo);
       return true;
     }
     if (mt == ct && role_i == CANDIDATE) {  // step down; message kept
-      wr(s.role, i, FOLLOWER);
+      wr<kW>(s.role, i, FOLLOWER);
       return true;
     }
     if (mt == ct && role_i == FOLLOWER && log_ok) {  // accept
@@ -430,22 +480,22 @@ __device__ __forceinline__ bool receive(St& s, int slot, bool* ovf) {
       const int t_at = rd2(s.logterm, i, index - 1);
       if (n_ent == 0 || (len_i >= index && t_at == ent_term)) {
         // already done (raft.tla:356-374): commitIndex := mcommitIndex
-        wr(s.commit, i, ff(lo));
-        *ovf = reply(s, pack_hi(M_AERESP, ct, 1, prev_idx + n_ent, i, j), 0,
-                     hi, lo);
+        wr<kW>(s.commit, i, ff(lo));
+        *ovf = reply<kW>(s, pack_hi(M_AERESP, ct, 1, prev_idx + n_ent, i, j),
+                         0, hi, lo);
         return true;
       }
       if (n_ent > 0 && len_i >= index && t_at != ent_term) {
         // conflict: drop one entry off the tail; message kept
-        wr2(s.logterm, i, len_i - 1, 0);
-        wr2(s.logval, i, len_i - 1, 0);
-        wr(s.loglen, i, len_i - 1);
+        wr2<kW>(s.logterm, i, len_i - 1, 0);
+        wr2<kW>(s.logval, i, len_i - 1, 0);
+        wr<kW>(s.loglen, i, len_i - 1);
         return true;
       }
       if (n_ent > 0 && len_i == prev_idx) {  // append (raft.tla:383-388)
-        wr2(s.logterm, i, len_i, ent_term);
-        wr2(s.logval, i, len_i, ent_val);
-        wr(s.loglen, i, len_i + 1);
+        wr2<kW>(s.logterm, i, len_i, ent_term);
+        wr2<kW>(s.logval, i, len_i, ent_val);
+        wr<kW>(s.loglen, i, len_i + 1);
         *ovf = len_i >= L;
         return true;
       }
@@ -453,16 +503,16 @@ __device__ __forceinline__ bool receive(St& s, int slot, bool* ovf) {
     return false;
   }
   if (mty == M_AERESP && mt < ct) {  // DropStaleResponse
-    bag_remove(s, hi, lo);
+    bag_remove<kW>(s, hi, lo);
     return true;
   }
   if (mty == M_AERESP && mt == ct) {  // HandleAppendEntriesResponse
     const bool succ = fa(hi) > 0;
     const int match = fb(hi);
     const int ni = rd2(s.next, i, j);
-    wr2(s.next, i, j, succ ? match + 1 : max(ni - 1, 1));
-    if (succ) wr2(s.match, i, j, match);
-    bag_remove(s, hi, lo);
+    wr2<kW>(s.next, i, j, succ ? match + 1 : max(ni - 1, 1));
+    if (succ) wr2<kW>(s.match, i, j, match);
+    bag_remove<kW>(s, hi, lo);
     return true;
   }
   return false;
@@ -472,6 +522,7 @@ __device__ __forceinline__ bool receive(St& s, int slot, bool* ovf) {
 // BecomeLeader's record into the elections set (raft.tla:237-242), all from
 // the unprimed state: the first free slot (eTerm = 0) unless an equal
 // record is present.  Returns the overflow flag (no free slot).
+template <bool kW>
 __device__ __forceinline__ bool elections_insert(St& s, int i) {
   const int r = clampi(i, N);
   const int lid = log_rank(s, i), ti = s.term[r], vg = s.vgrant[r];
@@ -486,19 +537,21 @@ __device__ __forceinline__ bool elections_insert(St& s, int i) {
     exists |= match;
     has_empty |= !occ;
   }
-  bool seen_empty = false;
+  if constexpr (kW) {
+    bool seen_empty = false;
 #pragma unroll
-  for (int e = 0; e < E; ++e) {
-    const bool empty = !(s.eterm[e] > 0);
-    if (!exists && empty && !seen_empty) {
-      s.eterm[e] = ti;
-      s.eleader[e] = i;
-      s.elog[e] = lid;
-      s.evotes[e] = vg;
+    for (int e = 0; e < E; ++e) {
+      const bool empty = !(s.eterm[e] > 0);
+      if (!exists && empty && !seen_empty) {
+        s.eterm[e] = ti;
+        s.eleader[e] = i;
+        s.elog[e] = lid;
+        s.evotes[e] = vg;
 #pragma unroll
-      for (int m = 0; m < N; ++m) s.evlog[e][m] = s.vlog[r][m];
+        for (int m = 0; m < N; ++m) s.evlog[e][m] = s.vlog[r][m];
+      }
+      seen_empty |= empty;
     }
-    seen_empty |= empty;
   }
   return !exists && !has_empty;
 }
@@ -507,33 +560,36 @@ __device__ __forceinline__ bool elections_insert(St& s, int i) {
 // -- the action families (raft.tla:167-276, 421-450) -----------------------
 
 // Applies lane (fam, i, j, v, slot) to s in place; returns `valid` and sets
-// *ovf (already masked by valid).
+// *ovf (already masked by valid).  Every guard reads the unprimed state
+// before the family writes anything, so the guard pass (kW false) returns
+// the same `valid` without touching s.
+template <bool kW>
 __device__ __forceinline__ bool apply(St& s, int fam, int i, int j, int v,
                                       int slot, bool* ovf) {
   bool valid = false, o = false;
   switch (fam) {
     case RESTART:
-      wr(s.role, i, FOLLOWER);
-      wr(s.vresp, i, 0);
-      wr(s.vgrant, i, 0);
-      wr_row(s.next, i, 1);
-      wr_row(s.match, i, 0);
-      wr(s.commit, i, 0);
+      wr<kW>(s.role, i, FOLLOWER);
+      wr<kW>(s.vresp, i, 0);
+      wr<kW>(s.vgrant, i, 0);
+      wr_row<kW>(s.next, i, 1);
+      wr_row<kW>(s.match, i, 0);
+      wr<kW>(s.commit, i, 0);
 #if RT_E > 0
-      wr_row(s.vlog, i, 0);  // voterLog[i] := empty map (raft.tla:171)
+      wr_row<kW>(s.vlog, i, 0);  // voterLog[i] := empty map (raft.tla:171)
 #endif
       valid = true;
       break;
     case TIMEOUT: {
       const int r = rd(s.role, i), t = rd(s.term, i);
       valid = r == FOLLOWER || r == CANDIDATE;
-      wr(s.role, i, CANDIDATE);
-      wr(s.term, i, t + 1);
-      wr(s.voted, i, 0);
-      wr(s.vresp, i, 0);
-      wr(s.vgrant, i, 0);
+      wr<kW>(s.role, i, CANDIDATE);
+      wr<kW>(s.term, i, t + 1);
+      wr<kW>(s.voted, i, 0);
+      wr<kW>(s.vresp, i, 0);
+      wr<kW>(s.vgrant, i, 0);
 #if RT_E > 0
-      wr_row(s.vlog, i, 0);  // voterLog[i] := empty map (raft.tla:186)
+      wr_row<kW>(s.vlog, i, 0);  // voterLog[i] := empty map (raft.tla:186)
 #endif
       break;
     }
@@ -542,47 +598,49 @@ __device__ __forceinline__ bool apply(St& s, int fam, int i, int j, int v,
       const int hi =
           pack_hi(M_RVREQ, rd(s.term, i), last_term(s, i), rd(s.loglen, i), i,
                   j);
-      o = bag_add(s, hi, 0);
+      o = bag_add<kW>(s, hi, 0);
       break;
     }
     case BECOMELEADER: {
       valid = rd(s.role, i) == CANDIDATE &&
               2 * __popc(static_cast<uint32_t>(rd(s.vgrant, i))) > N;
       const int ln = rd(s.loglen, i);
-      wr(s.role, i, LEADER);
-      wr_row(s.next, i, ln + 1);
-      wr_row(s.match, i, 0);
+      wr<kW>(s.role, i, LEADER);
+      wr_row<kW>(s.next, i, ln + 1);
+      wr_row<kW>(s.match, i, 0);
 #if RT_E > 0
-      o = elections_insert(s, i);
+      o = elections_insert<kW>(s, i);
 #endif
       break;
     }
     case CLIENTREQUEST: {
       const int ln = rd(s.loglen, i), t = rd(s.term, i);
       valid = rd(s.role, i) == LEADER;
-      wr2(s.logterm, i, ln, t);
-      wr2(s.logval, i, ln, v);
-      wr(s.loglen, i, ln + 1);
+      wr2<kW>(s.logterm, i, ln, t);
+      wr2<kW>(s.logval, i, ln, v);
+      wr<kW>(s.loglen, i, ln + 1);
       o = ln >= L;
       break;
     }
     case ADVANCECOMMIT: {
       valid = rd(s.role, i) == LEADER;
-      const int ln = rd(s.loglen, i);
-      int max_agree = 0;
+      if constexpr (kW) {
+        const int ln = rd(s.loglen, i);
+        int max_agree = 0;
 #pragma unroll
-      for (int idx = 1; idx <= L; ++idx) {
-        int cnt = 0;
+        for (int idx = 1; idx <= L; ++idx) {
+          int cnt = 0;
 #pragma unroll
-        for (int k = 0; k < N; ++k)
-          cnt += (rd2(s.match, i, k) >= idx || k == i) ? 1 : 0;
-        if (2 * cnt > N && idx <= ln) max_agree = idx;
+          for (int k = 0; k < N; ++k)
+            cnt += (rd2(s.match, i, k) >= idx || k == i) ? 1 : 0;
+          if (2 * cnt > N && idx <= ln) max_agree = idx;
+        }
+        const int t_at = rd2(s.logterm, i, max_agree - 1);
+        const int commit = (max_agree > 0 && t_at == rd(s.term, i))
+                               ? max_agree
+                               : rd(s.commit, i);
+        wr<kW>(s.commit, i, commit);
       }
-      const int t_at = rd2(s.logterm, i, max_agree - 1);
-      const int commit = (max_agree > 0 && t_at == rd(s.term, i))
-                             ? max_agree
-                             : rd(s.commit, i);
-      wr(s.commit, i, commit);
       break;
     }
     case APPENDENTRIES: {
@@ -602,23 +660,21 @@ __device__ __forceinline__ bool apply(St& s, int fam, int i, int j, int v,
 #endif
       const int lo = pack_lo(has_ent, ent_term, ent_val,
                              min(rd(s.commit, i), last_entry), mlog);
-      o = bag_add(s, hi, lo);
+      o = bag_add<kW>(s, hi, lo);
       break;
     }
     case RECEIVE: {
       const bool occupied = rd(s.mcnt, slot) > 0;
-      valid = receive(s, slot, &o) && occupied;
+      valid = receive<kW>(s, slot, &o) && occupied;
       break;
     }
     case DUPLICATE:
       valid = rd(s.mcnt, slot) > 0;
-#pragma unroll
-      for (int k = 0; k < S; ++k)
-        if (k == slot) s.mcnt[k] += 1;
+      wr<kW>(s.mcnt, slot, rd(s.mcnt, slot) + 1);
       break;
     case DROP:
       valid = rd(s.mcnt, slot) > 0;
-      bag_remove(s, rd(s.mhi, slot), rd(s.mlo, slot));
+      bag_remove<kW>(s, rd(s.mhi, slot), rd(s.mlo, slot));
       break;
     default:
       break;
@@ -695,10 +751,43 @@ __device__ __forceinline__ void sort_elections(int (&et)[E], int (&el)[E],
 }
 #endif
 
+// Sorts in registers and writes back: the slot is read and written once.
 __device__ __forceinline__ void canonicalize(St& s) {
-  sort_bag(s.mhi, s.mlo, s.mcnt);
+  int hi[S], lo[S], cnt[S];
+#pragma unroll
+  for (int k = 0; k < S; ++k) {
+    hi[k] = s.mhi[k];
+    lo[k] = s.mlo[k];
+    cnt[k] = s.mcnt[k];
+  }
+  sort_bag(hi, lo, cnt);
+#pragma unroll
+  for (int k = 0; k < S; ++k) {
+    s.mhi[k] = hi[k];
+    s.mlo[k] = lo[k];
+    s.mcnt[k] = cnt[k];
+  }
 #if RT_E > 0
-  sort_elections(s.eterm, s.eleader, s.elog, s.evotes, s.evlog);
+  int et[E], el[E], eg[E], ev[E], evl[E][N];
+#pragma unroll
+  for (int e = 0; e < E; ++e) {
+    et[e] = s.eterm[e];
+    el[e] = s.eleader[e];
+    eg[e] = s.elog[e];
+    ev[e] = s.evotes[e];
+#pragma unroll
+    for (int m = 0; m < N; ++m) evl[e][m] = s.evlog[e][m];
+  }
+  sort_elections(et, el, eg, ev, evl);
+#pragma unroll
+  for (int e = 0; e < E; ++e) {
+    s.eterm[e] = et[e];
+    s.eleader[e] = el[e];
+    s.elog[e] = eg[e];
+    s.evotes[e] = ev[e];
+#pragma unroll
+    for (int m = 0; m < N; ++m) s.evlog[e][m] = evl[e][m];
+  }
 #endif
 }
 
@@ -825,101 +914,6 @@ __device__ __forceinline__ bool constraint_ok(const St& s, const Limits& lim) {
   return ok && msgs <= lim.max_msgs;
 }
 
-// -- unpack / pack -----------------------------------------------------------
-
-__device__ __forceinline__ void unpack(const int* v, St& s) {
-#pragma unroll
-  for (int a = 0; a < N; ++a) {
-    s.role[a] = v[O_ROLE + a];
-    s.term[a] = v[O_TERM + a];
-    s.voted[a] = v[O_VOTED + a];
-    s.commit[a] = v[O_COMMIT + a];
-    s.loglen[a] = v[O_LOGLEN + a];
-    s.vresp[a] = v[O_VRESP + a];
-    s.vgrant[a] = v[O_VGRANT + a];
-#pragma unroll
-    for (int k = 0; k < L; ++k) {
-      s.logterm[a][k] = v[O_LOGTERM + a * L + k];
-      s.logval[a][k] = v[O_LOGVAL + a * L + k];
-    }
-#pragma unroll
-    for (int b = 0; b < N; ++b) {
-      s.next[a][b] = v[O_NEXT + a * N + b];
-      s.match[a][b] = v[O_MATCH + a * N + b];
-    }
-  }
-#pragma unroll
-  for (int k = 0; k < S; ++k) {
-    s.mhi[k] = v[O_MHI + k];
-    s.mlo[k] = v[O_MLO + k];
-    s.mcnt[k] = v[O_MCNT + k];
-  }
-#if RT_E > 0
-#pragma unroll
-  for (int w = 0; w < WA; ++w) s.alllogs[w] = v[O_ALLLOGS + w];
-#pragma unroll
-  for (int a = 0; a < N; ++a)
-#pragma unroll
-    for (int b = 0; b < N; ++b) s.vlog[a][b] = v[O_VLOG + a * N + b];
-#pragma unroll
-  for (int e = 0; e < E; ++e) {
-    s.eterm[e] = v[O_ETERM + e];
-    s.eleader[e] = v[O_ELEADER + e];
-    s.elog[e] = v[O_ELOG + e];
-    s.evotes[e] = v[O_EVOTES + e];
-#pragma unroll
-    for (int m = 0; m < N; ++m) s.evlog[e][m] = v[O_EVLOG + e * N + m];
-  }
-#endif
-}
-
-// Writes the packed successor (ops/state.STATE_FIELDS order).
-__device__ __forceinline__ void pack(const St& s, int* out) {
-#pragma unroll
-  for (int a = 0; a < N; ++a) {
-    out[O_ROLE + a] = s.role[a];
-    out[O_TERM + a] = s.term[a];
-    out[O_VOTED + a] = s.voted[a];
-    out[O_COMMIT + a] = s.commit[a];
-    out[O_LOGLEN + a] = s.loglen[a];
-    out[O_VRESP + a] = s.vresp[a];
-    out[O_VGRANT + a] = s.vgrant[a];
-#pragma unroll
-    for (int k = 0; k < L; ++k) {
-      out[O_LOGTERM + a * L + k] = s.logterm[a][k];
-      out[O_LOGVAL + a * L + k] = s.logval[a][k];
-    }
-#pragma unroll
-    for (int b = 0; b < N; ++b) {
-      out[O_NEXT + a * N + b] = s.next[a][b];
-      out[O_MATCH + a * N + b] = s.match[a][b];
-    }
-  }
-#pragma unroll
-  for (int k = 0; k < S; ++k) {
-    out[O_MHI + k] = s.mhi[k];
-    out[O_MLO + k] = s.mlo[k];
-    out[O_MCNT + k] = s.mcnt[k];
-  }
-#if RT_E > 0
-#pragma unroll
-  for (int w = 0; w < WA; ++w) out[O_ALLLOGS + w] = s.alllogs[w];
-#pragma unroll
-  for (int a = 0; a < N; ++a)
-#pragma unroll
-    for (int b = 0; b < N; ++b) out[O_VLOG + a * N + b] = s.vlog[a][b];
-#pragma unroll
-  for (int e = 0; e < E; ++e) {
-    out[O_ETERM + e] = s.eterm[e];
-    out[O_ELEADER + e] = s.eleader[e];
-    out[O_ELOG + e] = s.elog[e];
-    out[O_EVOTES + e] = s.evotes[e];
-#pragma unroll
-    for (int m = 0; m < N; ++m) out[O_EVLOG + e * N + m] = s.evlog[e][m];
-  }
-#endif
-}
-
 // -- the dedup key: VIEW and the orbit-minimal fingerprint ------------------
 //
 // ops/symmetry.py: a server permutation p (new index of old server j is
@@ -941,9 +935,10 @@ struct Group {
 constexpr int kHiKeep = ~((15 << 21) | (15 << 25));  // msgbits src, dst
 constexpr int kLoKeepE = ~(15 << 7);                 // msgbits e
 
-__device__ __forceinline__ void mac(RtFp& acc, const uint32_t* c1,
-                                    const uint32_t* c2, int w, int x) {
-  rt_fp_mac(acc, x, c1[w], c2[w]);
+// Folds word x at position w (a compile-time offset after unrolling).
+__device__ __forceinline__ void mac(RtFp& acc, const Consts& cs, int w,
+                                    int x) {
+  rt_fp_mac(acc, x, cs.c1[w], cs.c2[w]);
 }
 
 // The value relabel q[v - 1] + 1 of vlut[clamp(v, 0, V)].
@@ -966,20 +961,19 @@ __device__ __forceinline__ int map_rank1(const int16_t* rm, int x) {
   return c == 0 ? 0 : __ldg(rm + c - 1) + 1;
 }
 
-// Folds the history fields of g(s) into acc: server permutation (p, inv)
-// then the value permutation's rank map rm (null: identity); the election
-// slots are remapped into registers and re-sorted.
-__device__ __forceinline__ void history_key(const St& s, const int (&p)[N],
+// Folds the history fields of g(s) into acc: server permutation `row`
+// (p[N] then inv[N]) then the value permutation's rank map rm (null:
+// identity); the election slots are remapped into registers and re-sorted.
+__device__ __forceinline__ void history_key(const St& s, const int8_t* row,
+                                            const int (&p)[N],
                                             const int (&inv)[N],
                                             const int16_t* rm,
-                                            const uint32_t* c1,
-                                            const uint32_t* c2, RtFp& acc) {
+                                            const Consts& cs, RtFp& acc) {
 #pragma unroll
   for (int k = 0; k < N; ++k)
 #pragma unroll
     for (int m = 0; m < N; ++m)
-      mac(acc, c1, c2, O_VLOG + k * N + m,
-          map_rank1(rm, s.vlog[inv[k]][inv[m]]));
+      mac(acc, cs, O_VLOG + k * N + m, map_rank1(rm, s.vlog[inv[k]][inv[m]]));
   if (rm) {  // allLogs: bit r moves to bit rm[r]
     int mask[WA];
 #pragma unroll
@@ -992,15 +986,17 @@ __device__ __forceinline__ void history_key(const St& s, const int (&p)[N],
         bits &= bits - 1;
         if (r < U) {
           const int t = __ldg(rm + r);
-          mask[t >> 5] |= shl(1, t & 31);
+#pragma unroll
+          for (int x = 0; x < WA; ++x)
+            if (x == t >> 5) mask[x] |= shl(1, t & 31);
         }
       }
     }
 #pragma unroll
-    for (int w = 0; w < WA; ++w) mac(acc, c1, c2, O_ALLLOGS + w, mask[w]);
+    for (int w = 0; w < WA; ++w) mac(acc, cs, O_ALLLOGS + w, mask[w]);
   } else {
 #pragma unroll
-    for (int w = 0; w < WA; ++w) mac(acc, c1, c2, O_ALLLOGS + w, s.alllogs[w]);
+    for (int w = 0; w < WA; ++w) mac(acc, cs, O_ALLLOGS + w, s.alllogs[w]);
   }
   int et[E], el[E], eg[E], ev[E], evl[E][N];
 #pragma unroll
@@ -1009,7 +1005,7 @@ __device__ __forceinline__ void history_key(const St& s, const int (&p)[N],
     et[e] = s.eterm[e];
     const int ld = s.eleader[e] < 0 ? 0 : (s.eleader[e] > 15 ? 15
                                                              : s.eleader[e]);
-    el[e] = occ ? (ld < N ? p[ld] : 0) : s.eleader[e];
+    el[e] = occ ? (ld < N ? row[ld] : 0) : s.eleader[e];
     eg[e] = map_rank(rm, s.elog[e]);
     int pv = 0;
 #pragma unroll
@@ -1021,22 +1017,25 @@ __device__ __forceinline__ void history_key(const St& s, const int (&p)[N],
   sort_elections(et, el, eg, ev, evl);
 #pragma unroll
   for (int e = 0; e < E; ++e) {
-    mac(acc, c1, c2, O_ETERM + e, et[e]);
-    mac(acc, c1, c2, O_ELEADER + e, el[e]);
-    mac(acc, c1, c2, O_ELOG + e, eg[e]);
-    mac(acc, c1, c2, O_EVOTES + e, ev[e]);
+    mac(acc, cs, O_ETERM + e, et[e]);
+    mac(acc, cs, O_ELEADER + e, el[e]);
+    mac(acc, cs, O_ELOG + e, eg[e]);
+    mac(acc, cs, O_EVOTES + e, ev[e]);
 #pragma unroll
-    for (int m = 0; m < N; ++m) mac(acc, c1, c2, O_EVLOG + e * N + m, evl[e][m]);
+    for (int m = 0; m < N; ++m) mac(acc, cs, O_EVLOG + e * N + m, evl[e][m]);
   }
 }
 #endif
 
-__device__ void orbit_key(const St& s, const Group& g, const uint32_t* c1,
-                          const uint32_t* c2, int* key_hi, int* key_lo) {
-  uint32_t bh = 0u, bl = 0u;
-  bool first = true;
+// The minimum, as (hi << 32) | lo, of the keys of the group elements whose
+// server permutation is sub, sub + split, ... (each with all Q value
+// permutations); all ones when there is none.
+__device__ __forceinline__ uint64_t orbit_min(const St& s, const Group& g,
+                                              const Consts& cs, int sub,
+                                              int split) {
+  uint64_t best = ~0ull;
 #pragma unroll 1
-  for (int pi = 0; pi < g.P; ++pi) {
+  for (int pi = sub; pi < g.P; pi += split) {
     const int8_t* row = g.perm + pi * 2 * N;
     int p[N], inv[N];
 #pragma unroll
@@ -1050,15 +1049,15 @@ __device__ void orbit_key(const St& s, const Group& g, const uint32_t* c1,
     for (int k = 0; k < N; ++k) {
       const int src = inv[k];
       const int role = s.role[src];
-      mac(base, c1, c2, O_ROLE + k, role);
-      mac(base, c1, c2, O_TERM + k, s.term[src]);
+      mac(base, cs, O_ROLE + k, role);
+      mac(base, cs, O_TERM + k, s.term[src]);
       const int vf = clampi(s.voted[src], N + 1);
-      mac(base, c1, c2, O_VOTED + k, vf == 0 ? 0 : row[vf - 1] + 1);
-      mac(base, c1, c2, O_COMMIT + k, s.commit[src]);
-      mac(base, c1, c2, O_LOGLEN + k, s.loglen[src]);
+      mac(base, cs, O_VOTED + k, vf == 0 ? 0 : row[vf - 1] + 1);
+      mac(base, cs, O_COMMIT + k, s.commit[src]);
+      mac(base, cs, O_LOGLEN + k, s.loglen[src]);
 #pragma unroll
       for (int l = 0; l < L; ++l)
-        mac(base, c1, c2, O_LOGTERM + k * L + l, s.logterm[src][l]);
+        mac(base, cs, O_LOGTERM + k * L + l, s.logterm[src][l]);
       const bool dead = g.view == kViewDeadvotes && role != CANDIDATE;
       const int vr = dead ? 0 : s.vresp[src];
       const int vg = dead ? 0 : s.vgrant[src];
@@ -1068,12 +1067,12 @@ __device__ void orbit_key(const St& s, const Group& g, const uint32_t* c1,
         pr |= ((vr >> j) & 1) << p[j];
         pg |= ((vg >> j) & 1) << p[j];
       }
-      mac(base, c1, c2, O_VRESP + k, pr);
-      mac(base, c1, c2, O_VGRANT + k, pg);
+      mac(base, cs, O_VRESP + k, pr);
+      mac(base, cs, O_VGRANT + k, pg);
 #pragma unroll
       for (int m = 0; m < N; ++m) {
-        mac(base, c1, c2, O_NEXT + k * N + m, s.next[src][inv[m]]);
-        mac(base, c1, c2, O_MATCH + k * N + m, s.match[src][inv[m]]);
+        mac(base, cs, O_NEXT + k * N + m, s.next[src][inv[m]]);
+        mac(base, cs, O_MATCH + k * N + m, s.match[src][inv[m]]);
       }
     }
     int phi[S];
@@ -1094,7 +1093,7 @@ __device__ void orbit_key(const St& s, const Group& g, const uint32_t* c1,
 #pragma unroll
         for (int l = 0; l < L; ++l) {
           const int v = s.logval[inv[k]][l];
-          mac(acc, c1, c2, O_LOGVAL + k * L + l,
+          mac(acc, cs, O_LOGVAL + k * L + l,
               g.nv ? relabel_value(q, g.nv, v) : v);
         }
 #if RT_E > 0
@@ -1121,108 +1120,203 @@ __device__ void orbit_key(const St& s, const Group& g, const uint32_t* c1,
       sort_bag(mh, ml, mc);
 #pragma unroll
       for (int k = 0; k < S; ++k) {
-        mac(acc, c1, c2, O_MHI + k, mh[k]);
-        mac(acc, c1, c2, O_MLO + k, ml[k]);
-        mac(acc, c1, c2, O_MCNT + k, mc[k]);
+        mac(acc, cs, O_MHI + k, mh[k]);
+        mac(acc, cs, O_MLO + k, ml[k]);
+        mac(acc, cs, O_MCNT + k, mc[k]);
       }
 #if RT_E > 0
-      history_key(s, p, inv, rm, c1, c2, acc);
+      history_key(s, row, p, inv, rm, cs, acc);
 #endif
-      const uint32_t h = rt_fmix32(acc.s1 + RT_LANE_SEED_HI);
-      const uint32_t l = rt_fmix32(acc.s2 + RT_LANE_SEED_LO);
-      if (first || h < bh || (h == bh && l < bl)) {
-        bh = h;
-        bl = l;
-      }
-      first = false;
+      const uint64_t key =
+          (static_cast<uint64_t>(rt_fmix32(acc.s1 + RT_LANE_SEED_HI)) << 32) |
+          rt_fmix32(acc.s2 + RT_LANE_SEED_LO);
+      best = key < best ? key : best;
     }
   }
-  *key_hi = static_cast<int>(bh);
-  *key_lo = static_cast<int>(bl);
+  return best;
 }
 
-__global__ void __launch_bounds__(kThreads)
-    step_kernel(const int* __restrict__ vecs, int B, int R,
-                const int* __restrict__ table, int A,
-                const uint32_t* __restrict__ c1g,
-                const uint32_t* __restrict__ c2g,
+// -- the kernel --------------------------------------------------------------
+
+struct Outputs {
+  int* svecs;
+  uint8_t *valid, *ovf;
+  int *fp_hi, *fp_lo;
+  uint8_t *inv, *con;
+};
+
+// Shared memory of one block: rows, slots, the lane table, the pair queue,
+// the valid flags, then the group table's bytes.
+__host__ __device__ constexpr size_t smem_bytes(int R, int A, int n_group) {
+  return static_cast<size_t>(R + kThreads) * kWp * 4 +
+         static_cast<size_t>(A) * 5 * 4 + static_cast<size_t>(R) * A * 3 +
+         static_cast<size_t>(n_group);
+}
+
+__global__ void __launch_bounds__(kThreads, kMinBlocks)
+    step_kernel(const int* __restrict__ vecs, int B, int lgR,
+                const int* __restrict__ table, int A, const Consts cs,
                 const int8_t* __restrict__ groupg, int P, int Q, int nv,
                 const int16_t* __restrict__ rmaps, int view, InvList inv,
-                Limits lim, int* __restrict__ svecs,
-                uint8_t* __restrict__ valid_out, uint8_t* __restrict__ ovf_out,
-                int* __restrict__ fp_hi, int* __restrict__ fp_lo,
-                uint8_t* __restrict__ inv_out, uint8_t* __restrict__ con_out) {
-  // R rows of W words, then c1[W], c2[W], then the group table's bytes.
+                Limits lim, Outputs out) {
   extern __shared__ int sm[];
-  uint32_t* c1 = reinterpret_cast<uint32_t*>(sm + R * W);
-  uint32_t* c2 = c1 + W;
-  int8_t* group = reinterpret_cast<int8_t*>(c2 + W);
+  __shared__ int n_queued;
+  const int R = 1 << lgR;
+  int* rows = sm;                                  // R x kWp
+  int* slots = rows + R * kWp;                     // kThreads x kWp
+  int* lanes = slots + kThreads * kWp;             // A x 5
+  uint16_t* queue = reinterpret_cast<uint16_t*>(lanes + A * 5);  // R*A
+  uint8_t* vflags = reinterpret_cast<uint8_t*>(queue + R * A);   // R*A
+  int8_t* group = reinterpret_cast<int8_t*>(vflags + R * A);
   const int n_group = P * 2 * N + Q * nv;
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const long long row0 = static_cast<long long>(blockIdx.x) * R;
   const int nrows = B - row0 < R ? static_cast<int>(B - row0) : R;
-  for (int t = threadIdx.x; t < nrows * W; t += blockDim.x)
-    sm[t] = vecs[row0 * W + t];
-  for (int t = threadIdx.x; t < W; t += blockDim.x) {
-    c1[t] = c1g[t];
-    c2[t] = c2g[t];
-  }
-  for (int t = threadIdx.x; t < n_group; t += blockDim.x) group[t] = groupg[t];
-  __syncthreads();
-  const int r = threadIdx.x / A, a = threadIdx.x - r * A;
-  if (r >= nrows) return;
-  const long long lane = (row0 + r) * A + a;
-  const int* act = table + a * 5;
 
-  St s;
-  unpack(sm + r * W, s);
-#if RT_E > 0
-  // allLogs' = allLogs \cup {log[i] : i \in Server} with the parent's logs.
-  int alllogs[WA];
-#pragma unroll
-  for (int w = 0; w < WA; ++w) alllogs[w] = s.alllogs[w];
-#pragma unroll
-  for (int i = 0; i < N; ++i) {
-    const int rk = log_rank(s, i);
-#pragma unroll
-    for (int w = 0; w < WA; ++w)
-      if (w == rk >> 5) alllogs[w] |= shl(1, rk & 31);
+  for (int r = warp; r < nrows; r += kThreads / 32)
+    for (int w = lane; w < W; w += 32)
+      rows[r * kWp + w] = vecs[(row0 + r) * W + w];
+  for (int t = tid; t < A * 5; t += kThreads) lanes[t] = table[t];
+  for (int t = tid; t < n_group; t += kThreads) group[t] = groupg[t];
+  if (tid == 0) n_queued = 0;
+  __syncthreads();
+
+  // Phase 1: guards, pair p = a * R + r; at R = 32 a warp is one lane.
+  const int pairs = R * A;
+  for (int p0 = 0; p0 < pairs; p0 += kThreads) {
+    const int p = p0 + tid, a = p >> lgR, r = p & (R - 1);
+    bool ok = false;
+    if (p < pairs && r < nrows) {
+      const int* act = lanes + a * 5;
+      bool o;
+      ok = apply<false>(*reinterpret_cast<St*>(rows + r * kWp), act[0],
+                        act[1], act[2], act[3], act[4], &o);
+      vflags[r * A + a] = ok;
+    }
+    const unsigned m = __ballot_sync(kFull, ok);
+    int base = 0;
+    if (lane == 0 && m) base = atomicAdd(&n_queued, __popc(m));
+    base = __shfl_sync(kFull, base, 0);
+    if (ok) queue[base + __popc(m & ((1u << lane) - 1u))] = p;
   }
-#endif
-  bool ovf;
-  const bool valid = apply(s, act[0], act[1], act[2], act[3], act[4], &ovf);
-  valid_out[lane] = valid;
-  ovf_out[lane] = ovf;
-  int* out = svecs + lane * W;
-  if (!valid) {  // never read by the engine: written as zeros
-    for (int w = 0; w < W; ++w) out[w] = 0;
-    fp_hi[lane] = 0;
-    fp_lo[lane] = 0;
-    for (int k = 0; k < inv.n; ++k) inv_out[lane * inv.n + k] = 0;
-    con_out[lane] = 0;
-    return;
-  }
-#if RT_E > 0
-#pragma unroll
-  for (int w = 0; w < WA; ++w) s.alllogs[w] = alllogs[w];
-#endif
-  canonicalize(s);
-  pack(s, out);
+  __syncthreads();
+  for (int t = tid; t < nrows * A; t += kThreads)
+    out.valid[row0 * A + t] = vflags[t];
+
+  // Phase 2: finish the queued pairs, `split` threads to a pair.
+  const int nq = n_queued;
+  int split = 1;
+  while (split < 32 && 2 * split <= P && 2 * split * nq <= kThreads)
+    split *= 2;
+  const int sub = tid & (split - 1);
+  const int owner = tid - sub;  // the slot of the pair's first thread
+  St& s = *reinterpret_cast<St*>(slots + owner * kWp);
   const Group g{group, group + P * 2 * N, rmaps, P, Q, nv, view};
-  orbit_key(s, g, c1, c2, fp_hi + lane, fp_lo + lane);
-  for (int k = 0; k < inv.n; ++k)
-    inv_out[lane * inv.n + k] = invariant(s, inv.code[k]);
-  con_out[lane] = constraint_ok(s, lim);
+  for (int q0 = 0; q0 < nq; q0 += kThreads / split) {
+    const int k = q0 + tid / split;
+    const bool active = k < nq;
+    long long lane_g = 0;
+    if (active) {
+      const int p = queue[k], a = p >> lgR, r = p & (R - 1);
+      lane_g = (row0 + r) * A + a;
+      if (sub == 0) {
+        int* sw = slots + owner * kWp;
+        const int* prow = rows + r * kWp;
+#pragma unroll 4
+        for (int w = 0; w < W; ++w) sw[w] = prow[w];
+#if RT_E > 0
+        // allLogs' = allLogs \cup {log[i] : i \in Server}, parent's logs.
+        int alllogs[WA];
+#pragma unroll
+        for (int w = 0; w < WA; ++w) alllogs[w] = s.alllogs[w];
+#pragma unroll
+        for (int i = 0; i < N; ++i) {
+          const int rk = log_rank(s, i);
+#pragma unroll
+          for (int w = 0; w < WA; ++w)
+            if (w == rk >> 5) alllogs[w] |= shl(1, rk & 31);
+        }
+#endif
+        const int* act = lanes + a * 5;
+        bool ovf;
+        apply<true>(s, act[0], act[1], act[2], act[3], act[4], &ovf);
+        out.ovf[lane_g] = ovf;
+#if RT_E > 0
+#pragma unroll
+        for (int w = 0; w < WA; ++w) s.alllogs[w] = alllogs[w];
+#endif
+        canonicalize(s);
+      }
+    }
+    __syncwarp();
+    uint64_t key = active ? orbit_min(s, g, cs, sub, split) : ~0ull;
+    for (int o = split >> 1; o > 0; o >>= 1) {
+      const uint64_t other = __shfl_xor_sync(kFull, key, o);
+      key = other < key ? other : key;
+    }
+    const bool lead = active && sub == 0;
+    if (lead) {
+      out.fp_hi[lane_g] = static_cast<int>(key >> 32);
+      out.fp_lo[lane_g] = static_cast<int>(key & 0xFFFFFFFFu);
+      for (int c = 0; c < inv.n; ++c)
+        out.inv[lane_g * inv.n + c] = invariant(s, inv.code[c]);
+      out.con[lane_g] = constraint_ok(s, lim);
+    }
+    // Phase 3: the warp writes its staged successors, word-coalesced.
+    unsigned m = __ballot_sync(kFull, lead);
+    while (m) {
+      const int j = __ffs(m) - 1;
+      m &= m - 1;
+      const long long dst = __shfl_sync(kFull, lane_g, j);
+      const int* src = slots + (warp * 32 + j) * kWp;
+      int* o = out.svecs + dst * W;
+      if constexpr (W % 4 == 0) {
+        for (int c = lane; c < W / 4; c += 32)
+          reinterpret_cast<int4*>(o)[c] =
+              make_int4(src[4 * c], src[4 * c + 1], src[4 * c + 2],
+                        src[4 * c + 3]);
+      } else {
+        for (int w = lane; w < W; w += 32) o[w] = src[w];
+      }
+    }
+    __syncwarp();
+  }
+}
+
+// Rows per block: 32, halved while the grid would have fewer than 256
+// blocks, so a small launch still spreads over the card.
+int rows_log2(int B) {
+  int lg = 5;
+  while (lg > 0 && (B + (1 << lg) - 1) >> lg < 256) --lg;
+  return lg;
 }
 
 }  // namespace
 
 extern "C" int rt_step_width() { return W; }
 
-// `group`: P rows of (p[N], inv[N]) then Q rows of q[nv], int8, on the
-// device (ops/symmetry.kernel_tables); nv = 0 when Value symmetry is off
-// (then Q = 1 and no value row is read).  `rmaps`: in a faithful layout
-// with nv > 0, Q rows of U int16 rank maps on the device
+// Blocks of the kernel one multiprocessor holds at once for a launch of B
+// rows with A lanes and the group table's n_group bytes, and the shared
+// memory each takes.
+extern "C" int rt_step_occupancy(int B, int A, int n_group, int* blocks,
+                                 int* smem) {
+  const size_t bytes = smem_bytes(1 << rows_log2(B), A, n_group);
+  cudaError_t err = cudaFuncSetAttribute(
+      step_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      static_cast<int>(bytes));
+  if (err != cudaSuccess) return static_cast<int>(err);
+  *smem = static_cast<int>(bytes);
+  return static_cast<int>(cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+      blocks, step_kernel, kThreads, bytes));
+}
+
+// `c1`, `c2`: the W fingerprint constants, in host memory.  `group`: P rows
+// of (p[N], inv[N]) then Q rows of q[nv], int8, on the device
+// (ops/symmetry.kernel_tables); nv = 0 when Value symmetry is off (then
+// Q = 1 and no value row is read).  `rmaps`: in a faithful layout with
+// nv > 0, Q rows of U int16 rank maps on the device
 // (ops/symmetry.kernel_rank_maps); otherwise unused and may be null.
+// `svecs` must be 16-byte aligned.
 extern "C" int rt_step_launch(const int* vecs, int B, const int* table, int A,
                               const uint32_t* c1, const uint32_t* c2,
                               const int8_t* group, int P, int Q, int nv,
@@ -1232,8 +1326,9 @@ extern "C" int rt_step_launch(const int* vecs, int B, const int* table, int A,
                               int max_dup, int* svecs, uint8_t* valid,
                               uint8_t* ovf, int* fp_hi, int* fp_lo,
                               uint8_t* inv_ok, uint8_t* con_ok, void* stream) {
-  if (n_inv < 0 || n_inv > kMaxInv || A < 1 || A > kThreads || P < 1 ||
-      Q < 1 || nv < 0 || nv > kMaxValues || (nv == 0 && Q != 1))
+  if (n_inv < 0 || n_inv > kMaxInv || A < 1 || A > kMaxLanes || P < 1 ||
+      Q < 1 || nv < 0 || nv > kMaxValues || (nv == 0 && Q != 1) ||
+      reinterpret_cast<uintptr_t>(svecs) % 16 != 0)
     return static_cast<int>(cudaErrorInvalidValue);
 #if RT_E > 0
   if (nv > 0 && rmaps == nullptr) return static_cast<int>(cudaErrorInvalidValue);
@@ -1243,17 +1338,21 @@ extern "C" int rt_step_launch(const int* vecs, int B, const int* table, int A,
   inv.n = n_inv;
   for (int k = 0; k < n_inv; ++k) inv.code[k] = inv_codes[k];
   const Limits lim{max_term, max_log, max_msgs, max_dup};
-  const int R = kThreads / A;
-  const unsigned blocks = static_cast<unsigned>((B + R - 1) / R);
-  const size_t smem = static_cast<size_t>(R * W + 2 * W) * 4 +
-                      static_cast<size_t>(P * 2 * N + Q * nv);
+  Consts cs;
+  for (int w = 0; w < W; ++w) {
+    cs.c1[w] = c1[w];
+    cs.c2[w] = c2[w];
+  }
+  const int lgR = rows_log2(B);
+  const unsigned blocks =
+      static_cast<unsigned>((B + (1 << lgR) - 1) >> lgR);
+  const size_t smem = smem_bytes(1 << lgR, A, P * 2 * N + Q * nv);
   const cudaError_t err = cudaFuncSetAttribute(
       step_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
       static_cast<int>(smem));
   if (err != cudaSuccess) return static_cast<int>(err);
-  step_kernel<<<blocks, R * A, smem, static_cast<cudaStream_t>(stream)>>>(
-      vecs, B, R, table, A, c1, c2, group, P, Q, nv, rmaps, view, inv, lim,
-      svecs,
-      valid, ovf, fp_hi, fp_lo, inv_ok, con_ok);
+  const Outputs out{svecs, valid, ovf, fp_hi, fp_lo, inv_ok, con_ok};
+  step_kernel<<<blocks, kThreads, smem, static_cast<cudaStream_t>(stream)>>>(
+      vecs, B, lgR, table, A, cs, group, P, Q, nv, rmaps, view, inv, lim, out);
   return static_cast<int>(cudaGetLastError());
 }

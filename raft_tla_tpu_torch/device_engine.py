@@ -30,7 +30,8 @@ the reference scatters with ``mode="drop"``.
 Host syncs: the dedup probe loop reads ``any(unresolved)`` once per
 iteration, the append reads the new-state count, and the chunk's scan reads
 one small stats vector; :attr:`DeviceEngine.stats` counts them, with the
-chunks and (on the card) the device time of the dedup inserts.
+chunks and (on the card) the device time of the steps (``step_s``) and of
+the dedup inserts (``dedup_s``).
 
 Results do not depend on ``chunk``: a key's winner is the smallest flat
 index, and chunks walk rows in order.
@@ -343,20 +344,24 @@ class DeviceEngine:
         rows_g = gstart + torch.arange(B, device=dev)
         row_act = (rows_g >= start) & (rows_g < c["lvl_end"])
         live = row_act & c["conflag"][gstart:gstart + B]
+        ev = self._events
+        if ev is not None:
+            ev.append([torch.cuda.Event(enable_timing=True)
+                       for _ in range(4)])
+            ev[-1][0].record()
         out = self.step(c["store"][gstart:gstart + B])
+        if ev is not None:
+            ev[-1][1].record()
         valid = out["valid"] & live[:, None]
         fvalid = valid.reshape(-1)
 
-        ev = self._dedup_events
         if ev is not None:
-            ev.append((torch.cuda.Event(enable_timing=True),
-                       torch.cuda.Event(enable_timing=True)))
-            ev[-1][0].record()
+            ev[-1][2].record()
         is_new, unres = dedup_insert(
             c["tbl_hi"], c["tbl_lo"], out["fp_hi"].reshape(-1),
             out["fp_lo"].reshape(-1), fvalid, self._syncs)
         if ev is not None:
-            ev[-1][1].record()
+            ev[-1][3].record()
 
         # Append the new states in discovery order.
         new_idx = is_new.nonzero().squeeze(1)
@@ -464,8 +469,8 @@ class DeviceEngine:
                     violation=Violation(nm, init_py, [(None, init_py)]),
                     levels=[1], wall_s=time.monotonic() - t0)
         self._syncs = SyncCounter()
-        # CUDA events around each dedup insert (its device time)
-        self._dedup_events = [] if self.device.type == "cuda" else None
+        # CUDA events around each step and each dedup insert (device time)
+        self._events = [] if self.device.type == "cuda" else None
         self.stats = {"chunks": 0}
         init_vec = interp.to_vec(init_py, bounds)
         key = sym.init_fingerprint(self.config, init_py, init_vec) \
@@ -477,10 +482,11 @@ class DeviceEngine:
         done = self._run(max_chunks, checkpoint, checkpoint_every_s, init_key)
         if not done and checkpoint:
             self.save_checkpoint(checkpoint, init_key)
-        if self._dedup_events is not None:
+        if self._events is not None:
             torch.cuda.synchronize(self.device)
-            self.stats["dedup_s"] = sum(
-                a.elapsed_time(b) for a, b in self._dedup_events) / 1e3
+            for key, (a, b) in (("step_s", (0, 1)), ("dedup_s", (2, 3))):
+                self.stats[key] = sum(e[a].elapsed_time(e[b])
+                                      for e in self._events) / 1e3
         self.stats["syncs"] = self._syncs.n
         c = self.carry
         if c["fail"]:

@@ -102,16 +102,18 @@ def prebuild(jobs) -> None:
 
 
 def library(source: str, defines: dict | None = None) -> ctypes.CDLL:
-    """The loaded library of ``csrc/<source>`` built with ``defines``."""
+    """The loaded library of ``csrc/<source>`` built with ``defines``
+    (the sources are hashed once per process and library, not per call)."""
     defines = dict(defines or {})
-    so, _ = _paths(source, defines)
+    key = (source, tuple(sorted(defines.items())))
     with _lock:
-        if so not in _loaded:
+        if key not in _loaded:
+            so, _ = _paths(source, defines)
             job = _start(source, defines)
             if job is not None:
                 _finish(job)
-            _loaded[so] = ctypes.CDLL(str(so))
-        return _loaded[so]
+            _loaded[key] = ctypes.CDLL(str(so))
+        return _loaded[key]
 
 
 def ptxas_report(source: str, defines: dict | None = None) -> str:

@@ -28,12 +28,12 @@ _consts: dict = {}
 
 
 def _lib():
-    lib = build.library(SOURCE)
-    fn = lib.rt_fingerprint_launch
-    fn.argtypes = [ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int,
-                   ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
-                   ctypes.c_void_p, ctypes.c_void_p]
-    fn.restype = ctypes.c_int
+    fn = build.library(SOURCE).rt_fingerprint_launch
+    if fn.argtypes is None:          # first call: declare the signature
+        fn.argtypes = [ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int,
+                       ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
+                       ctypes.c_void_p, ctypes.c_void_p]
+        fn.restype = ctypes.c_int
     return fn
 
 

@@ -17,14 +17,16 @@ and, in faithful mode, election slots, allLogs words and the log
 universe's terms and values are ``-D`` macros, see csrc/step.cu) and cached
 by that key.  It is held to this contract against the plain step:
 ``valid`` equal on every lane, every other output bit-equal where
-``valid`` is true.  Invalid lanes are written as zeros; the engine never
-reads them.
+``valid`` is true.  The kernel leaves the other outputs of an invalid lane
+unwritten (``torch.empty``); every reader masks them by ``valid``, and the
+plain step writes zeros there.
 """
 
 from __future__ import annotations
 
 import ctypes
 
+import numpy as np
 import torch
 
 from raft_tla_tpu_torch.config import Bounds
@@ -33,7 +35,7 @@ from raft_tla_tpu_torch.models import spec as SP
 from raft_tla_tpu_torch.models import views
 from raft_tla_tpu_torch.ops import build
 from raft_tla_tpu_torch.ops import kernels
-from raft_tla_tpu_torch.ops import pallas_fp
+from raft_tla_tpu_torch.ops import fingerprint as fpr
 from raft_tla_tpu_torch.ops import state as st
 from raft_tla_tpu_torch.ops import symmetry as sym
 
@@ -99,6 +101,25 @@ def _lib(bounds: Bounds):
     return fn
 
 
+def occupancy(bounds: Bounds, spec: str = "full", symmetry: tuple = (),
+              rows: int = 8192) -> tuple:
+    """``(blocks, shared bytes)``: the K1 blocks one multiprocessor holds
+    at once for a launch of ``rows`` rows of this layout, and the shared
+    memory each takes (cudaOccupancyMaxActiveBlocksPerMultiprocessor)."""
+    lib = build.library(SOURCE, layout_defines(bounds))
+    fn = lib.rt_step_occupancy
+    fn.argtypes = [ctypes.c_int] * 3 + [ctypes.c_void_p] * 2
+    fn.restype = ctypes.c_int
+    P, Q = sym.group_sizes(bounds, symmetry)
+    nv = bounds.n_values if "Value" in symmetry else 0
+    blocks, smem = ctypes.c_int(0), ctypes.c_int(0)
+    err = fn(rows, len(SP.lane_table(bounds, spec)),
+             P * 2 * bounds.n_servers + Q * nv, ctypes.byref(blocks),
+             ctypes.byref(smem))
+    build.check(err, "step occupancy")
+    return blocks.value, smem.value
+
+
 def build_step(bounds: Bounds, spec: str = "full", invariants: tuple = (),
                device="cuda", symmetry: tuple = (), view: str | None = None):
     """The fused step for ``device``: the K1 launcher on a CUDA device, the
@@ -118,14 +139,23 @@ def build_step(bounds: Bounds, spec: str = "full", invariants: tuple = (),
     codes = [inv_mod.CODES[nm] for nm in invariants]
     n_inv = len(codes)
     inv_arr = (ctypes.c_int * max(1, n_inv))(*codes)
-    consts = pallas_fp._device_constants(W, device)
+    c = np.ascontiguousarray(fpr.lane_constants(W), dtype=np.uint32)
+    consts = [(ctypes.c_uint32 * W)(*row) for row in c]   # host memory
     group = torch.as_tensor(sym.kernel_tables(bounds, symmetry),
                             device=device)
     P, Q = sym.group_sizes(bounds, symmetry)
     nv = bounds.n_values if "Value" in symmetry else 0
     rmaps = torch.as_tensor(sym.kernel_rank_maps(bounds, symmetry),
                             device=device).contiguous()
-    view_code = views.KERNEL_CODES[view]
+    # The launch arguments that do not change from call to call.
+    fixed = (table.data_ptr(), A, ctypes.cast(consts[0], ctypes.c_void_p),
+             ctypes.cast(consts[1], ctypes.c_void_p), group.data_ptr(), P, Q,
+             nv, rmaps.data_ptr() if rmaps.numel() else None,
+             views.KERNEL_CODES[view], ctypes.cast(inv_arr, ctypes.c_void_p),
+             n_inv, bounds.max_term, bounds.max_log, bounds.max_msgs,
+             bounds.max_dup)
+    names = ("svecs", "valid", "overflow", "fp_hi", "fp_lo", "inv_ok",
+             "con_ok")
 
     def step(vecs):
         global launches
@@ -137,29 +167,19 @@ def build_step(bounds: Bounds, spec: str = "full", invariants: tuple = (),
                              f"{tuple(vecs.shape)}")
         vecs = vecs.contiguous()
         B, dev = vecs.shape[0], vecs.device
-        out = {
-            "svecs": torch.empty((B, A, W), dtype=torch.int32, device=dev),
-            "valid": torch.empty((B, A), dtype=torch.bool, device=dev),
-            "overflow": torch.empty((B, A), dtype=torch.bool, device=dev),
-            "fp_hi": torch.empty((B, A), dtype=torch.int32, device=dev),
-            "fp_lo": torch.empty((B, A), dtype=torch.int32, device=dev),
-            "inv_ok": torch.empty((B, A, n_inv), dtype=torch.bool, device=dev),
-            "con_ok": torch.empty((B, A), dtype=torch.bool, device=dev),
-        }
-        err = launch(vecs.data_ptr(), B, table.data_ptr(), A,
-                     consts[0].data_ptr(), consts[1].data_ptr(),
-                     group.data_ptr(), P, Q, nv,
-                     rmaps.data_ptr() if rmaps.numel() else None, view_code,
-                     ctypes.cast(inv_arr, ctypes.c_void_p), n_inv,
-                     bounds.max_term, bounds.max_log, bounds.max_msgs,
-                     bounds.max_dup,
-                     *(out[k].data_ptr() for k in (
-                         "svecs", "valid", "overflow", "fp_hi", "fp_lo",
-                         "inv_ok", "con_ok")),
-                     build.stream_ptr(dev))
+        i32, b8 = torch.int32, torch.bool
+        outs = (torch.empty((B, A, W), dtype=i32, device=dev),
+                torch.empty((B, A), dtype=b8, device=dev),
+                torch.empty((B, A), dtype=b8, device=dev),
+                torch.empty((B, A), dtype=i32, device=dev),
+                torch.empty((B, A), dtype=i32, device=dev),
+                torch.empty((B, A, n_inv), dtype=b8, device=dev),
+                torch.empty((B, A), dtype=b8, device=dev))
+        err = launch(vecs.data_ptr(), B, *fixed,
+                     *(t.data_ptr() for t in outs), build.stream_ptr(dev))
         build.check(err, "step kernel launch")
         launches += 1
-        return out
+        return dict(zip(names, outs))
 
+    step.keep = (table, consts, inv_arr, group, rmaps)  # what `fixed` points to
     return step
-

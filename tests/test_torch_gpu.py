@@ -98,14 +98,37 @@ def test_step_kernel_dedup_key_matches_plain_step(cuda, kw, spec, axes,
         assert not (diff & val).any(), k
 
 
-def test_fingerprint_kernel_matches_plain_version(cuda):
+def test_step_kernel_on_a_ragged_block(cuda):
+    """8,191 rows: 255 full blocks of 32 rows and one of 31."""
+    b = Bounds(n_servers=3, n_values=2, max_term=2, max_log=1, max_msgs=2)
+    eng = DeviceEngine(CheckConfig(bounds=b, spec="full", invariants=INVS,
+                                   chunk=1024), Capacities(n_states=1 << 18))
+    res = eng.check(max_chunks=40)
+    rows = eng.carry["store"][:8191]
+    assert res.n_states >= 8191
+    got = pallas_step.build_step(b, "full", INVS, cuda,
+                                 symmetry=("Server",))(rows)
+    want = kernels.build_step(b, "full", INVS, ("Server",))(rows)
+    val = want["valid"]
+    assert torch.equal(got["valid"], val)
+    for k in ("svecs", "overflow", "fp_hi", "fp_lo", "inv_ok", "con_ok"):
+        diff = got[k] != want[k]
+        if diff.dim() > 2:
+            diff = diff.flatten(2).any(-1)
+        assert not (diff & val).any(), k
+
+
+@pytest.mark.parametrize("n,W", [(3001, 57), (3001, 60), (3001, 110),
+                                 (3001, 113), (3001, 1), (1_048_573, 60)])
+def test_fingerprint_kernel_matches_plain_version(cuda, n, W):
     rng = np.random.default_rng(5)
-    for W in (57, 60, 110, 1):
-        rows = torch.as_tensor(rng.integers(-2**31, 2**31, size=(3001, W),
-                                            dtype=np.int64).astype(np.int32),
-                               device=cuda)
-        hi, lo = pallas_fp.fingerprint_rows(rows)
-        rh, rl = fpr.fingerprint(rows, fpr.torch_constants(W, cuda))
+    rows = torch.as_tensor(rng.integers(-2**31, 2**31, size=(n, W),
+                                        dtype=np.int64).astype(np.int32),
+                           device=cuda)
+    shifted = rows.reshape(-1)[1:1 + (n - 1) * W].reshape(n - 1, W)
+    for view in (rows, shifted):      # shifted: 4-byte, not 16-byte aligned
+        hi, lo = pallas_fp.fingerprint_rows(view)
+        rh, rl = fpr.fingerprint(view, fpr.torch_constants(W, cuda))
         assert torch.equal(hi, rh) and torch.equal(lo, rl)
 
 
