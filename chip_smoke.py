@@ -46,7 +46,26 @@ Phases (each prints a line; any failure exits non-zero):
    on rows from every level.  No reference count exists for it;
 8. 300 chunks of the phase-5 and phase-7 runs (after their first 3,000
    and 5,000) under torch.profiler: the card's time by kernel, K1's kernel
-   time per chunk inside the engine, and the card's idle share.
+   time per chunk inside the engine, and the card's idle share;
+9. the flagship through the DDD engine (``--engine ddd``, full
+   retention): phase 5's counts and levels, K1 launched on every chunk, no
+   plain-step call; its wall, orbits/s, segments, chunks, host syncs per
+   chunk, K1's and the filter's milliseconds per chunk (CUDA events), the
+   bytes copied to the host, the host flush seconds, peak device memory
+   and peak host RSS;
+10. phase 4's universe through the DDD engine in frontier retention with
+   every level file kept: phase 4's counts, then the audit of the ``.keys``
+   log with K2 (the rows of the level files, unpacked on the card, hash to
+   those keys bit for bit, pairwise distinct, as many as counted);
+11. a seeded violation and a deadlock through the DDD engine in both
+   retentions, each trace equal to the device engine's for the same cfg;
+   then a ``--deadline`` stop with ``--checkpoint`` on phase 10's universe
+   and its ``--resume``, which must give phase 10's counts;
+12. the 5-server election ``runs/MC5s2v.cfg`` (SYMMETRY Server, |G| =
+   120), beyond what the device engine can hold, through the DDD engine
+   in frontier retention with ``--stats`` and ``--deadline``: every level
+   it completes must end at the cumulative count of the JAX package's
+   campaign (``runs/elect5ddd.stats``), level 20 at least.
 
 The line before the last is ``{"kernels": [...]}``; the last line is
 ``{"ok": true, "device": {...}}``.  Tolerance everywhere: bit-exact (all
@@ -58,8 +77,10 @@ from __future__ import annotations
 import contextlib
 import io
 import json
+import resource
 import subprocess
 import sys
+import threading
 import time
 from pathlib import Path
 
@@ -67,6 +88,7 @@ import numpy as np
 import torch
 
 ROOT = Path(__file__).resolve().parent
+DEV = "cuda"
 WORK = ROOT / "build" / "chip_smoke"
 HBM_BYTES_PER_S = 3.35e12          # H100 SXM device memory
 INT_OPS_PER_S = 67e12              # CUDA-core fp32 peak; int32 is no faster
@@ -100,6 +122,25 @@ FAITHFUL_SYM_EXPECT = (1_827_985, 53, 4_929_392)
 FAITHFUL_FLAGSHIP_ARGS = ["--faithful", "--max-term", "2", "--max-log", "1",
                           "--max-msgs", "2", "--chunk", str(MAIN_CHUNK),
                           "--cap", "134000000"]
+
+
+# Phase 12: the 5-server election (BASELINE config #2) and the cumulative
+# orbit count at the end of each BFS level of the JAX package's DDD
+# campaign on it (the last line of each level in runs/elect5ddd.stats).
+ELECT5_CFG = ROOT / "runs" / "MC5s2v.cfg"
+ELECT5_ARGS = ["--spec", "election", "--max-term", "2", "--max-log", "0",
+               "--max-msgs", "2", "--engine", "ddd", "--retention",
+               "frontier", "--stats", "--chunk", "4096"]
+ELECT5_LEVEL_ENDS = {
+    1: 2, 2: 6, 3: 19, 4: 63, 5: 204, 6: 581, 7: 1354, 8: 2805, 9: 5990,
+    10: 13329, 11: 27162, 12: 50744, 13: 99851, 14: 204227, 15: 374447,
+    16: 653935, 17: 1276303, 18: 2386074, 19: 3862077, 20: 6914065,
+    21: 13035600, 22: 20231266, 23: 33043858, 24: 61457382, 25: 92875324,
+    26: 140007553, 27: 251752136, 28: 371737651, 29: 524944666,
+    30: 899977148}
+ELECT5_DEADLINE = 30.0          # seconds after the first harvest
+STOP_DEADLINE = 1.0             # phase 11's stop, long before the end
+ELECT5_MIN_LEVEL = 20
 
 
 def fail(msg: str) -> None:
@@ -172,11 +213,13 @@ def write_cfg(name: str, servers: int, values: int, invariants: str,
     return str(path)
 
 
-def run_cli(argv):
-    """The port's CLI in-process: (exit code, engine, result, stdout)."""
+def run_cli(argv, err=None):
+    """The port's CLI in-process: (exit code, engine, result, stdout); its
+    standard error goes to ``err`` when one is given."""
     from raft_tla_tpu_torch import check
     buf = io.StringIO()
-    with contextlib.redirect_stdout(buf):
+    with contextlib.redirect_stdout(buf), \
+            contextlib.redirect_stderr(err or sys.stderr):
         code, eng, res = check.run(argv)
     return code, eng, res, buf.getvalue()
 
@@ -212,10 +255,23 @@ def phase0():
     for lay in layouts:
         d = pallas_step.layout_defines(bounds_of(lay))
         jobs.add((pallas_step.SOURCE, tuple(sorted(d.items()))))
+    from raft_tla_tpu_torch.utils import native
     t0 = time.monotonic()
+    host_lib = {}
+
+    def build_host_store():
+        native._lib()
+        host_lib["s"] = time.monotonic() - t0
+
+    gxx = threading.Thread(target=build_host_store)
+    gxx.start()                        # g++ beside the nvcc builds
     build.prebuild(sorted(jobs))
+    gxx.join()
+    if "s" not in host_lib:
+        fail("the host store (csrc/host_store.cc) did not build")
     say(f"phase 0: built {len(jobs)} kernel libraries (nvcc sm_90a, in "
-        f"parallel) in {time.monotonic() - t0:.1f} s")
+        f"parallel) in {time.monotonic() - t0:.1f} s, and the DDD host "
+        f"store (g++) in {host_lib['s']:.1f} s beside them")
     for key in ((3, 2, 2, 1, 1), (3, 2, 2, 1, 2), (5, 2, 2, 0, 2),
                 (6, 1, 2, 0, 1), (3, 2, 2, 1, 2, 6), (5, 2, 2, 0, 2, 6)):
         d = pallas_step.layout_defines(bounds_of(key))
@@ -549,7 +605,7 @@ def audit_store(eng, n_states: int, label: str) -> None:
         fail(f"{label}: store audit")
 
 
-def drive(argv, label: str) -> tuple:
+def drive(argv, label: str, err=None) -> tuple:
     """One run of the main path through the CLI, the launch counts set to
     0 just before it and read just after: ``(code, eng, res, out, wall,
     launches)``."""
@@ -562,7 +618,7 @@ def drive(argv, label: str) -> tuple:
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     t0 = time.monotonic()
-    code, eng, res, out = run_cli(argv)
+    code, eng, res, out = run_cli(argv, err)
     torch.cuda.synchronize()
     wall = time.monotonic() - t0
     launches = {"step": pallas_step.launches,
@@ -795,6 +851,243 @@ def phase8() -> None:
                    [FLAGSHIP_CFG, *FAITHFUL_FLAGSHIP_ARGS], 5000, 300)
 
 
+def host_rss_gib() -> float:
+    """Peak resident memory of this process so far (GiB)."""
+    return resource.getrusage(resource.RUSAGE_SELF).ru_maxrss / 2**20
+
+
+def report_ddd(label: str, eng, res, wall: float, launches: dict) -> dict:
+    """The DDD engine's per-run numbers (``eng.stats``) on one line."""
+    st = eng.stats
+    chunks = max(1, st["chunks"])
+    row = dict(wall=wall, rate=res.n_states / wall, segments=st["segments"],
+               chunks=st["chunks"], syncs_per_chunk=st["syncs"] / chunks,
+               k1_ms=1e3 * st["step_s"] / chunks,
+               filter_ms=1e3 * st["filter_s"] / chunks,
+               d2h_bytes=st["d2h_bytes"], flush_s=st["flush_s"],
+               flush_wait_s=st["flush_wait_s"],
+               peak_dev_gib=torch.cuda.max_memory_allocated() / 2**30,
+               peak_rss_gib=host_rss_gib(), launches=launches["step"])
+    say(f"{label}: wall {wall:.2f} s, {row['rate']:,.0f} states/s; "
+        f"segments {row['segments']}, chunks {row['chunks']}, host syncs "
+        f"{row['syncs_per_chunk']:.3f}/chunk; K1 {row['k1_ms']:.4f} "
+        f"ms/chunk, filter {row['filter_ms']:.4f} ms/chunk (CUDA events); "
+        f"copied to the host {row['d2h_bytes']} bytes; host flush "
+        f"{row['flush_s']:.2f} s, of it {row['flush_wait_s']:.2f} s on or "
+        f"waited for by the main loop; K1 launches {launches['step']}, K2 "
+        f"launches {launches['fingerprint']}, plain step calls "
+        f"{launches['plain step']}, plain orbit-key calls "
+        f"{launches['plain orbit key']}; peak device memory "
+        f"{row['peak_dev_gib']:.2f} GiB, peak host RSS so far "
+        f"{row['peak_rss_gib']:.2f} GiB")
+    if launches["step"] != st["chunks"] or launches["plain step"] \
+            or launches["plain orbit key"]:
+        fail(f"{label}: K1 did not run every chunk alone: {launches}, "
+             f"{st['chunks']} chunks")
+    return row
+
+
+def phase9(results):
+    """The flagship through the DDD engine."""
+    want_levels = flagship_levels()
+    want = (94_396_461, 57, 258_131_266)
+    argv = [str(FLAGSHIP_CFG), *FLAGSHIP_ARGS, "--engine", "ddd"]
+    code, eng, res, out, wall, launches = drive(argv, "DDD flagship run")
+    got = (res.n_states, res.diameter, res.n_transitions)
+    say(f"phase 9: flagship {FLAGSHIP_CFG.name} {' '.join(FLAGSHIP_ARGS)} "
+        f"--engine ddd: exit {code}; orbits {got[0]}, diameter {got[1]}, "
+        f"transitions {got[2]} (expected {want}); levels equal to "
+        f"{FLAGSHIP_OUT.name}: {res.levels == want_levels}")
+    results["ddd_phase9"] = report_ddd("phase 9", eng, res, wall, launches)
+    if code != 0 or got != want or res.levels != want_levels:
+        fail("DDD flagship counts differ from the reference")
+    results["launches_phase9"] = launches
+
+
+def audit_level_files(prefix: str, schema, n_states: int,
+                      label: str) -> int:
+    """The rows of every level file, unpacked on the card, hash with K2 to
+    the ``.keys`` log bit for bit (and K2 equals the plain fingerprint);
+    the keys are pairwise distinct and as many as counted.  Returns K2's
+    launches."""
+    from raft_tla_tpu_torch.ops import fingerprint as fpr, pallas_fp
+    # by size: a run that ends closes its files without a final header
+    keys = np.fromfile(prefix + ".keys", np.int32, offset=16).reshape(-1, 2)
+    rows, i = [], 1
+    while Path(f"{prefix}.rowsL{i}").exists():
+        rows.append(np.fromfile(f"{prefix}.rowsL{i}", np.int32,
+                                offset=16).reshape(-1, schema.P))
+        i += 1
+    rows = np.concatenate(rows)
+    if rows.shape[0] != n_states or keys.shape[0] != n_states:
+        fail(f"{label}: level files hold {rows.shape[0]} rows and the key "
+             f"log {keys.shape[0]} keys for {n_states} states")
+    pallas_fp.launches = 0
+    consts = fpr.torch_constants(schema.W, DEV)
+    bad = off = 0
+    for a in range(0, n_states, 1 << 21):
+        vec = schema.unpack(torch.as_tensor(rows[a:a + (1 << 21)],
+                                            device=DEV), torch)
+        hi, lo = pallas_fp.fingerprint_rows(vec)
+        rh, rl = fpr.fingerprint(vec, consts)
+        k = torch.as_tensor(keys[a:a + (1 << 21)], device=DEV)
+        bad += int(((hi != rh) | (lo != rl)).sum())
+        off += int(((hi != k[:, 1]) | (lo != k[:, 0])).sum())
+    k64 = np.sort(keys.view(np.uint64).ravel())
+    dup = int((k64[1:] == k64[:-1]).sum())
+    n_k2 = pallas_fp.launches
+    say(f"{label}: key-log audit with K2: {n_states} rows of {i - 1} level "
+        f"files, K2 against the plain fingerprint mismatches {bad}, keys "
+        f"differing from the log {off}, duplicate keys {dup}, K2 launches "
+        f"{n_k2}")
+    if bad or off or dup:
+        fail(f"{label}: key-log audit")
+    return n_k2
+
+
+def real_argv(*extra) -> list:
+    cfg = write_cfg("real", REAL["servers"], REAL["values"],
+                    REAL["invariants"])
+    return [cfg, "--spec", "full", "--max-term", str(REAL["max_term"]),
+            "--max-log", str(REAL["max_log"]), "--max-msgs",
+            str(REAL["max_msgs"]), "--chunk", str(MAIN_CHUNK), "--cap",
+            str(1 << 25), "--levels", "128", "--engine", "ddd", *extra]
+
+
+def clear_snapshot(prefix: Path) -> None:
+    prefix.parent.mkdir(parents=True, exist_ok=True)
+    for f in prefix.parent.glob(prefix.name + "*"):
+        f.unlink()
+
+
+def phase10(results):
+    """Phase 4's universe through DDD in frontier retention, every level
+    file kept, then the key-log audit with K2."""
+    prefix = WORK / "p10"
+    clear_snapshot(prefix)
+    code, eng, res, out, wall, launches = drive(
+        real_argv("--retention", "frontier", "--keep-levels",
+                  "--checkpoint", str(prefix)), "DDD frontier run")
+    got = (res.n_states, res.diameter, res.n_transitions)
+    say(f"phase 10: full 3s/2v t2 l1 m1 --engine ddd --retention frontier "
+        f"--keep-levels: exit {code}; states {got[0]}, diameter {got[1]}, "
+        f"transitions {got[2]} (expected {REAL_EXPECT})")
+    results["ddd_phase10"] = report_ddd("phase 10", eng, res, wall,
+                                        launches)
+    if code != 0 or got != REAL_EXPECT:
+        fail("DDD frontier counts differ from the reference")
+    results["launches_phase10"] = launches
+    # the audit runs after the path: its K2 launches are its own key
+    results["audit_launches_phase10"] = {
+        "step": 0, "fingerprint": audit_level_files(
+            str(prefix), eng.schema, res.n_states, "phase 10")}
+    clear_snapshot(prefix)
+
+
+def phase11():
+    """Violation and deadlock traces against the device engine's; a
+    deadline stop and its resume."""
+    from raft_tla_tpu_torch import check
+    from raft_tla_tpu_torch.config import Bounds, CheckConfig
+    from raft_tla_tpu_torch.ddd_engine import DDDCapacities, DDDEngine
+    from raft_tla_tpu_torch.device_engine import Capacities, DeviceEngine
+    from raft_tla_tpu_torch.engine import DEADLOCK
+    from raft_tla_tpu_torch.models import interp, spec as SP
+    from raft_tla_tpu_torch.ops import msgbits as mb
+    b = Bounds(n_servers=3, n_values=1, max_term=3, max_log=0, max_msgs=4)
+    start = interp.init_state(b)._replace(
+        role=(SP.LEADER, SP.FOLLOWER, SP.CANDIDATE), term=(2, 3, 3),
+        votedFor=(1, 3, 0), vGrant=(0b011, 0, 0b100),
+        msgs=(((mb.rv_response(3, 1, 1, 2)), 1),))
+    b1 = Bounds(n_servers=1, n_values=1, max_term=2, max_log=0, max_msgs=2)
+    cases = [
+        ("seeded NaiveNoTwoLeaders", CheckConfig(
+            bounds=b, spec="election", invariants=("NaiveNoTwoLeaders",),
+            chunk=256), start, "NaiveNoTwoLeaders"),
+        ("1-server election --deadlock", CheckConfig(
+            bounds=b1, spec="election", invariants=("NoTwoLeaders",),
+            chunk=256, check_deadlock=True), None, DEADLOCK)]
+    for name, cfg, init, want in cases:
+        ref = DeviceEngine(cfg, Capacities(n_states=1 << 15, levels=64)
+                           ).check(init_override=init).violation
+        A = len(SP.action_table(cfg.bounds, cfg.spec))
+        counts = []
+        for retention in ("full", "frontier"):
+            prefix = WORK / f"p11-{retention}"
+            clear_snapshot(prefix)
+            eng = DDDEngine(cfg, DDDCapacities(
+                table=1 << 16, seg_rows=max(1 << 19, 2 * cfg.chunk * A),
+                levels=64, retention=retention,
+                keep_levels=retention == "frontier"))
+            res = eng.check(init_override=init, checkpoint=str(prefix))
+            v = res.violation
+            same = v is not None and v.invariant == want == ref.invariant \
+                and v.trace == ref.trace
+            counts.append(res.n_states)
+            say(f"phase 11: {name}, {retention} retention: "
+                f"{v.invariant if v else None} after {res.n_states} "
+                f"states, trace of {len(v.trace) if v else 0} states equal "
+                f"to the device engine's: {same}")
+            if not same:
+                fail(f"{name}: the DDD trace differs ({retention})")
+            clear_snapshot(prefix)
+        if counts[0] != counts[1]:
+            fail(f"{name}: the two retentions stop at {counts}")
+    prefix = WORK / "p11-deadline"
+    clear_snapshot(prefix)
+    snap = ["--retention", "frontier", "--checkpoint", str(prefix)]
+    t0 = time.monotonic()
+    code, _e, res, out = run_cli(real_argv(*snap, "--deadline",
+                                           str(STOP_DEADLINE)))
+    part = (res.n_states, res.complete) if res else None
+    code2, _e, res2, out2 = run_cli(real_argv(*snap, "--resume",
+                                              str(prefix)))
+    got = (res2.n_states, res2.diameter, res2.n_transitions) if res2 \
+        else None
+    say(f"phase 11: phase 10's universe, --deadline {STOP_DEADLINE:g}: "
+        f"exit {code} at "
+        f"{part}; --resume: exit {code2}, {got} (expected {REAL_EXPECT}); "
+        f"{time.monotonic() - t0:.1f} s")
+    if code != check.EXIT_STOPPED or part is None or part[1] \
+            or code2 != 0 or got != REAL_EXPECT:
+        fail("deadline stop and resume: " + out[-300:] + out2[-300:])
+    clear_snapshot(prefix)
+
+
+def phase12(results):
+    """The 5-server election through DDD, against the JAX campaign's
+    per-level counts."""
+    err = io.StringIO()
+    argv = [str(ELECT5_CFG), *ELECT5_ARGS, "--deadline",
+            str(ELECT5_DEADLINE)]
+    code, eng, res, out, wall, launches = drive(argv, "elect5 run", err)
+    lines = [json.loads(ln) for ln in err.getvalue().splitlines()
+             if ln.startswith("{")]
+    ends = {}
+    for d in lines:
+        ends[d["level"]] = d["n_states"]
+    done = [lv for lv in sorted(ends) if lv + 1 in ends
+            or (res.complete and lv == max(ends))]
+    bad = [(lv, ends[lv], ELECT5_LEVEL_ENDS.get(lv)) for lv in done
+           if ends[lv] != ELECT5_LEVEL_ENDS.get(lv)]
+    walls = {d["level"]: d["wall_s"] for d in lines}
+    by_level = [(lv, round((ends[lv] - ends[lv - 1])
+                           / max(walls[lv] - walls[lv - 1], 1e-9)))
+                for lv in done if lv - 1 in ends]
+    say(f"phase 12: {ELECT5_CFG.name} {' '.join(ELECT5_ARGS)} --deadline "
+        f"{ELECT5_DEADLINE:g}: exit {code}; {res.n_states} orbits, "
+        f"levels completed {done[-1] if done else 0}, each equal to "
+        f"runs/elect5ddd.stats: {not bad}; orbits/s by level "
+        f"{by_level}")
+    results["ddd_phase12"] = report_ddd("phase 12", eng, res, wall,
+                                        launches)
+    results["ddd_phase12"]["level"] = done[-1] if done else 0
+    if code not in (0, 14) or bad or not done \
+            or done[-1] < ELECT5_MIN_LEVEL:
+        fail(f"elect5 levels differ or fell short: {bad}, {done[-1:]}")
+    results["launches_phase12"] = launches
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device visible to torch", file=sys.stderr)
@@ -803,17 +1096,15 @@ def main() -> int:
         print("chip_smoke: run it from a checkout of the repository",
               file=sys.stderr)
         return 2
+    phases = [phase1, phase2, phase3, phase4, phase5, phase6, phase7,
+              phase8, phase9, phase10, phase11, phase12]
     t_all = time.monotonic()
     card = phase0()
     results = {}
-    phase1(results)
-    phase2(results)
-    phase3()
-    phase4(results)
-    phase5(results)
-    phase6(results)
-    phase7(results)
-    phase8()
+    for k, fn in enumerate(phases, 1):
+        t0 = time.monotonic()
+        fn(results) if fn.__code__.co_argcount else fn()
+        say(f"phase {k} took {time.monotonic() - t0:.1f} s")
     results["step"]["max_abs_err"] = max(results["step"]["max_abs_err"],
                                          results.get("step_err", 0))
     # launches: the flagship's run (phase 5) for K1; for K2, which keys
@@ -836,7 +1127,9 @@ def main() -> int:
             "launches_by_path": {
                 path: results[f"launches_{path}"][name]
                 for path in ("phase4", "phase5", "phase6_sym", "phase6",
-                             "phase7")},
+                             "phase7", "phase9", "phase10", "phase12")},
+            "audit_launches": {
+                "phase10": results["audit_launches_phase10"][name]},
             "mismatches": r["mismatches"],
             "max_abs_err": r["max_abs_err"], "ms": r["ms"],
             "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],

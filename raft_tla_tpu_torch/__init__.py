@@ -10,8 +10,10 @@ The port covers the reference's main path, ``python -m raft_tla_tpu.check``
 with the device engine, in parity and faithful mode (``--faithful``: the
 history variables as state), with SYMMETRY (Server, Value) and the
 registered VIEWs: cfg -> :class:`CheckConfig` -> a BFS resident on the GPU
--> verdict, trace and TLC exit code.  Two hand-written Hopper kernels carry
-it:
+-> verdict, trace and TLC exit code; and the DDD engine (``--engine ddd``,
+``ddd_engine.py``), whose exact dedup runs on the host (``utils/keyset``,
+``utils/native``) while the card expands and filters.  Two hand-written
+Hopper kernels carry both:
 
 - ``csrc/step.cu`` — the fused frontier step with its history stage and
   its dedup-key stage (view, orbit-minimal fingerprint)

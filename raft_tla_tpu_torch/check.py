@@ -3,11 +3,17 @@
 
 A stock TLC model config in (the universe ``Server``/``Value`` and the
 ``INVARIANT`` stanza); the state constraint from the ``--max-*`` flags; the
-device engine runs the search on the card (``--device cuda``, the default)
-or on the CPU (``--device cpu``).  The result lines and exit codes are the
-reference's: 0 no error, 11 deadlock, 12 invariant violation, 1 error.
+engine runs the search on the card (``--device cuda``, the default) or on
+the CPU (``--device cpu``).  The result lines and exit codes are the
+reference's: 0 no error, 11 deadlock, 12 invariant violation, 14 stopped
+before completion (``--deadline`` or SIGINT), 1 error.
 
-This port supports the device engine in parity and faithful mode
+Two engines: ``--engine device`` (the default: the whole search in the
+card's memory) and ``--engine ddd`` (exact dedup on the host, the card
+expands and filters; ``--block``, ``--retention``, ``--keep-levels``,
+``--deadline``, ``--stats``, ``--host-dedup``, ``--prefetch``).
+
+This port supports both engines in parity and faithful mode
 (``--faithful``: the history variables carried as state, with the
 ``*Hist`` invariants), with SYMMETRY on the Server and Value axes
 (``--symmetry`` or the cfg stanza), the registered VIEWs (``--view``) and
@@ -24,6 +30,7 @@ import time
 EXIT_OK = 0
 EXIT_DEADLOCK = 11       # TLC's exit code for deadlock
 EXIT_VIOLATION = 12      # TLC's exit code for safety-property violations
+EXIT_STOPPED = 14        # a lossless stop short of exhaustion
 EXIT_ERROR = 1
 
 # Reference flags that this slice refuses, with the ROADMAP.md queue item.
@@ -31,7 +38,13 @@ _NOT_PORTED = {
     "--property": "liveness",
     "--simulate": "simulation and fleets",
     "--emit-tlc": "TLC export",
+    "--route": "item 9, gated variants",
+    "--device-dedup": "item 9, gated variants",
+    "--devdedup": "item 9, gated variants",
+    "--reshard-to": "item 11, parallel engines",
+    "--events": "item 13, serving and host glue (obs)",
 }
+ENGINES = ("device", "ddd")
 
 
 def build_argparser() -> argparse.ArgumentParser:
@@ -45,7 +58,10 @@ def build_argparser() -> argparse.ArgumentParser:
                    choices=("full", "election", "replication"),
                    help="Next-disjunct subset (default: full)")
     p.add_argument("--engine", default="device",
-                   help="only 'device' is ported (the reference's default)")
+                   help="device (the reference's default: the search in "
+                        "the card's memory) or ddd (delayed duplicate "
+                        "detection: exact dedup on the host, the card "
+                        "expands and filters)")
     p.add_argument("--max-term", type=int, default=3,
                    help="CONSTRAINT: currentTerm[i] <= N (default 3)")
     p.add_argument("--max-log", type=int, default=2,
@@ -70,8 +86,40 @@ def build_argparser() -> argparse.ArgumentParser:
     p.add_argument("--cap", type=int, default=1 << 20,
                    help="distinct-state capacity (store rows)")
     p.add_argument("--levels", type=int, default=256, help="max BFS depth")
+    p.add_argument("--block", type=int, default=None, metavar="ROWS",
+                   help="--engine ddd: frontier rows uploaded per block "
+                        "(default 2^20; must match the run when resuming)")
+    p.add_argument("--retention", default="full",
+                   choices=("full", "frontier"),
+                   help="--engine ddd: 'frontier' keeps the master keys in "
+                        "RAM and only the current and next BFS level of "
+                        "rows, in disk-backed level files, with no trace "
+                        "links (a violation reports the state)")
+    p.add_argument("--keep-levels", action="store_true",
+                   help="--retention frontier: keep every level file, so "
+                        "a violation rebuilds its full trace by backward "
+                        "re-search")
+    p.add_argument("--deadline", type=float, default=None,
+                   metavar="SECONDS",
+                   help="--engine ddd: stop losslessly at the first segment "
+                        "boundary past this wall budget (exit 14, snapshot "
+                        "saved with --checkpoint)")
+    p.add_argument("--stats", action="store_true",
+                   help="--engine ddd: one JSON line of run stats per host "
+                        "flush and level end, on stderr")
+    p.add_argument("--host-dedup", default=None,
+                   choices=("auto", "on", "off"),
+                   help="--engine ddd: partitioned master keys and a "
+                        "background flush thread (sets RAFT_TLA_HOSTDEDUP; "
+                        "auto = on iff the host has 2+ cores)")
+    p.add_argument("--prefetch", default=None,
+                   choices=("auto", "on", "off"),
+                   help="--engine ddd: read and upload block k+1 while "
+                        "block k expands (sets RAFT_TLA_PREFETCH; auto = on "
+                        "iff the host has 2+ cores)")
     p.add_argument("--checkpoint", metavar="PATH",
-                   help="write the search carry here (reference .npz format)")
+                   help="write the search carry (device) or a DDD snapshot "
+                        "here (the reference's formats)")
     p.add_argument("--checkpoint-every", type=float, default=120.0,
                    help="seconds between checkpoints")
     p.add_argument("--resume", metavar="PATH",
@@ -201,9 +249,30 @@ def run(argv=None) -> tuple:
         if getattr(args, flag[2:].replace("-", "_")) is not None:
             p.error(f"{flag} is not ported to raft_tla_tpu_torch yet "
                     f"(ROADMAP.md queue A: {item})")
-    if args.engine != "device":
+    if args.engine not in ENGINES:
         p.error(f"--engine {args.engine} is not ported to raft_tla_tpu_torch "
-                "yet (ROADMAP.md queue A: other engines); only 'device'")
+                "yet (ROADMAP.md queue A: item 5, other engines); only "
+                f"{' and '.join(ENGINES)}")
+    ddd_only = [f for f, v in (("--block", args.block),
+                               ("--deadline", args.deadline),
+                               ("--host-dedup", args.host_dedup),
+                               ("--prefetch", args.prefetch))
+                if v is not None]
+    ddd_only += [f for f, v in (("--retention frontier",
+                                 args.retention != "full"),
+                                ("--keep-levels", args.keep_levels),
+                                ("--stats", args.stats)) if v]
+    if ddd_only and args.engine != "ddd":
+        p.error(f"{ddd_only[0]} requires --engine ddd")
+    if args.keep_levels and args.retention != "frontier":
+        p.error("--keep-levels requires --retention frontier")
+    import os
+    for flag, env in (("host_dedup", "RAFT_TLA_HOSTDEDUP"),
+                      ("prefetch", "RAFT_TLA_PREFETCH")):
+        if getattr(args, flag) is not None:
+            # resolved once at engine construction (utils/keyset,
+            # utils/prefetch), as in the reference
+            os.environ[env] = getattr(args, flag)
     from raft_tla_tpu_torch import __version__
     try:
         config = config_of(args)
@@ -231,13 +300,16 @@ def run(argv=None) -> tuple:
     t0 = time.monotonic()
     eng = None
     try:
-        from raft_tla_tpu_torch.device_engine import Capacities, DeviceEngine
-        eng = DeviceEngine(config, Capacities(n_states=args.cap,
-                                              levels=args.levels),
-                           device=args.device)
-        result = eng.check(checkpoint=args.checkpoint,
-                           checkpoint_every_s=args.checkpoint_every,
-                           resume=args.resume)
+        eng = make_engine(args, config)
+        if args.engine == "ddd":
+            result = eng.check(on_progress=_stats_cb(args),
+                               checkpoint=args.checkpoint,
+                               checkpoint_every_s=args.checkpoint_every,
+                               resume=args.resume, deadline_s=args.deadline)
+        else:
+            result = eng.check(checkpoint=args.checkpoint,
+                               checkpoint_every_s=args.checkpoint_every,
+                               resume=args.resume)
     except Exception as e:
         print(f"Error: {e}", file=sys.stderr)
         return EXIT_ERROR, eng, None
@@ -249,6 +321,10 @@ def run(argv=None) -> tuple:
     if args.coverage:
         for fam, cnt in sorted(result.coverage.items()):
             print(f"  {fam}: {cnt} new states")
+    if result.violation is None and not result.complete:
+        print("Model checking stopped before completion (state space "
+              "not exhausted); resume from the checkpoint to continue.")
+        return EXIT_STOPPED, eng, result
     code = verdict_code(result)
     if code == EXIT_OK:
         print("Model checking completed. No error has been found.")
@@ -259,6 +335,38 @@ def run(argv=None) -> tuple:
         from raft_tla_tpu_torch.utils.render import render_trace
         print(render_trace(result.violation, b))
     return code, eng, result
+
+
+def make_engine(args, config):
+    """The engine of parsed CLI arguments, sized as the reference's CLI
+    sizes it."""
+    if args.engine == "ddd":
+        from raft_tla_tpu_torch.ddd_engine import DDDCapacities, DDDEngine
+        from raft_tla_tpu_torch.models import spec as S
+        # the filter is a traffic optimization, not a capacity bound:
+        # sized to the expected state count, capped at 2^28 slots
+        table = 1 << max(10, min(28, (2 * args.cap - 1).bit_length()))
+        # a segment's buffers hold at least one chunk's worst-case stream
+        A = len(S.action_table(config.bounds, config.spec))
+        seg_rows = max(1 << 19, 2 * args.chunk * A)
+        return DDDEngine(config, DDDCapacities(
+            block=args.block or 1 << 20, table=table, seg_rows=seg_rows,
+            levels=args.levels, retention=args.retention,
+            keep_levels=args.keep_levels), device=args.device)
+    from raft_tla_tpu_torch.device_engine import Capacities, DeviceEngine
+    return DeviceEngine(config, Capacities(n_states=args.cap,
+                                           levels=args.levels),
+                        device=args.device)
+
+
+def _stats_cb(args):
+    if not args.stats:
+        return None
+    import json
+
+    def cb(stats):
+        print(json.dumps(stats), file=sys.stderr, flush=True)
+    return cb
 
 
 def entry() -> None:

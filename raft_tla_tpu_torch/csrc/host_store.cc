@@ -1,0 +1,280 @@
+// Host-side native runtime of the DDD engine — the port's copy of the
+// reference's native/host_store.cc, built with g++ from this tree
+// (utils/native.py) into the checkout's build/ directory.
+//
+// Plays the role TLC's disk-backed `states/` directory plays: an
+// append-only store of every discovered state, addressed by discovery
+// index, living in host RAM rather than device memory.  Parent/lane link
+// arrays (TLC's predecessor links for counterexample traces) ride along,
+// so trace reconstruction never touches the device.
+//
+// Also hosts the bit-identical FP64 fingerprint (two-lane multilinear +
+// murmur3 fmix32, constants supplied by the Python side from
+// ops/fingerprint.lane_constants) and an iterative Tarjan SCC; the port
+// binds neither yet.  Exposed C ABI only; bound via ctypes.
+//
+// Memory layout: fixed-size blocks (BLOCK_ROWS rows each) addressed
+// through a two-level block directory of atomic pointers — append never
+// reallocates or copies existing rows OR the directory itself, so read
+// pointers stay valid across appends and capacity grows to host RAM
+// (2^12 root entries x 2^12 blocks x 2^16 rows = 2^40 rows).
+//
+// Concurrency contract (the upload-prefetch disjointness precondition,
+// utils/prefetch.py): ONE appender thread and any number of reader
+// threads may run concurrently, provided every read targets rows below
+// a size the reader observed via store_size() AFTER those rows were
+// appended.  Appends publish block pointers and then the new n_rows
+// with release stores; store_size() loads with acquire, so a reader
+// that bounds-checks against an observed size sees fully-written rows.
+// Concurrent reads of rows at or above the observed size (and
+// multi-appender use) remain undefined.
+
+#include <atomic>
+#include <cstdint>
+#include <cstring>
+#include <memory>
+#include <vector>
+
+namespace {
+
+constexpr int64_t BLOCK_ROWS = 1 << 16;
+
+// Two-level directory of heap blocks: a fixed root of atomic chunk
+// pointers, each chunk a fixed array of atomic block pointers.  The
+// single appender allocates chunks/blocks on demand and publishes the
+// pointers with release stores; readers load with acquire.  Neither
+// level ever moves, unlike a std::vector's backing array.
+template <typename T>
+struct BlockDir {
+    static constexpr int64_t CHUNK = 1 << 12;  // blocks per chunk
+    static constexpr int64_t ROOT = 1 << 12;   // chunks in the root
+
+    std::atomic<std::atomic<T*>*> root[ROOT] = {};
+
+    ~BlockDir() {
+        for (int64_t c = 0; c < ROOT; ++c) {
+            std::atomic<T*>* chunk =
+                root[c].load(std::memory_order_relaxed);
+            if (!chunk) break;
+            for (int64_t b = 0; b < CHUNK; ++b)
+                delete[] chunk[b].load(std::memory_order_relaxed);
+            delete[] chunk;
+        }
+    }
+
+    // Reader path: acquire loads pair with the appender's release
+    // stores of the same pointers.
+    T* block(int64_t b) const {
+        std::atomic<T*>* chunk =
+            root[b / CHUNK].load(std::memory_order_acquire);
+        return chunk[b % CHUNK].load(std::memory_order_acquire);
+    }
+
+    // Appender path (single thread): allocate-and-publish on demand.
+    T* ensure_block(int64_t b, int64_t elems) {
+        std::atomic<T*>* chunk =
+            root[b / CHUNK].load(std::memory_order_relaxed);
+        if (!chunk) {
+            chunk = new std::atomic<T*>[CHUNK]();
+            root[b / CHUNK].store(chunk, std::memory_order_release);
+        }
+        T* blk = chunk[b % CHUNK].load(std::memory_order_relaxed);
+        if (!blk) {
+            blk = new T[elems];
+            chunk[b % CHUNK].store(blk, std::memory_order_release);
+        }
+        return blk;
+    }
+};
+
+struct Store {
+    int32_t width;                // int32 words per state row
+    std::atomic<int64_t> n_rows{0};
+    std::atomic<int64_t> n_links{0};
+    BlockDir<int32_t> blocks;     // state rows
+    // Trace links, int64 parents: discovery indices pass 2^31 on a
+    // campaign of ~10^9 orbits, so a 32-bit link would be the binding
+    // state-count ceiling of the whole DDD architecture.
+    BlockDir<int64_t> parent_blocks;
+    BlockDir<int32_t> lane_blocks;
+
+    explicit Store(int32_t w) : width(w) {}
+
+    const int32_t* row_ptr(int64_t r) const {
+        return blocks.block(r / BLOCK_ROWS) + (r % BLOCK_ROWS) * width;
+    }
+    const int64_t* parent_ptr(int64_t r) const {
+        return parent_blocks.block(r / BLOCK_ROWS) + (r % BLOCK_ROWS);
+    }
+    const int32_t* lane_ptr(int64_t r) const {
+        return lane_blocks.block(r / BLOCK_ROWS) + (r % BLOCK_ROWS);
+    }
+};
+
+}  // namespace
+
+extern "C" {
+
+Store* store_create(int32_t width) { return new Store(width); }
+
+void store_destroy(Store* s) { delete s; }
+
+int64_t store_size(const Store* s) {
+    return s->n_rows.load(std::memory_order_acquire);
+}
+
+// Append n rows of s->width int32s; returns the new row count.  The
+// new size is release-published only after every row is fully written,
+// so concurrent readers bounds-checking against store_size() never see
+// a partially-copied row.
+int64_t store_append(Store* s, const int32_t* rows, int64_t n) {
+    int64_t r = s->n_rows.load(std::memory_order_relaxed);
+    for (int64_t k = 0; k < n; ++k, ++r) {
+        int32_t* blk = s->blocks.ensure_block(
+            r / BLOCK_ROWS, BLOCK_ROWS * s->width);
+        std::memcpy(blk + (r % BLOCK_ROWS) * s->width,
+                    rows + k * s->width, sizeof(int32_t) * s->width);
+    }
+    s->n_rows.store(r, std::memory_order_release);
+    return r;
+}
+
+void store_read(Store* s, int64_t start, int64_t n, int32_t* out) {
+    for (int64_t k = 0; k < n; ++k)
+        std::memcpy(out + k * s->width, s->row_ptr(start + k),
+                    sizeof(int32_t) * s->width);
+}
+
+// Trace links: (int64 parent discovery index, int32 action lane).
+// Same publish discipline as store_append.
+int64_t store_append_links(Store* s, const int64_t* parent,
+                           const int32_t* lane, int64_t n) {
+    int64_t r = s->n_links.load(std::memory_order_relaxed);
+    for (int64_t k = 0; k < n; ++k, ++r) {
+        int64_t* pblk = s->parent_blocks.ensure_block(
+            r / BLOCK_ROWS, BLOCK_ROWS);
+        int32_t* lblk = s->lane_blocks.ensure_block(
+            r / BLOCK_ROWS, BLOCK_ROWS);
+        pblk[r % BLOCK_ROWS] = parent[k];
+        lblk[r % BLOCK_ROWS] = lane[k];
+    }
+    s->n_links.store(r, std::memory_order_release);
+    return r;
+}
+
+void store_read_links(Store* s, int64_t start, int64_t n,
+                      int64_t* parent_out, int32_t* lane_out) {
+    for (int64_t k = 0; k < n; ++k) {
+        parent_out[k] = *s->parent_ptr(start + k);
+        lane_out[k] = *s->lane_ptr(start + k);
+    }
+}
+
+// Walk a parent chain backwards from `from_row` to the root; returns chain
+// length, writing discovery indices root-first into out (capacity out_cap).
+int64_t store_trace_chain(Store* s, int64_t from_row, int64_t* out,
+                          int64_t out_cap) {
+    int64_t len = 0;
+    for (int64_t cur = from_row; cur >= 0; ++len) {
+        if (len >= out_cap) return -1;           // caller's buffer too small
+        out[len] = cur;
+        cur = *s->parent_ptr(cur);
+    }
+    // reverse to root-first order
+    for (int64_t a = 0, b = len - 1; a < b; ++a, --b) {
+        int64_t t = out[a];
+        out[a] = out[b];
+        out[b] = t;
+    }
+    return len;
+}
+
+// Bit-identical twin of ops/fingerprint.fingerprint (two-lane multilinear
+// multiply-sum mod 2^32 + murmur3 fmix32).  c1/c2 are the lane_constants
+// rows; seeds are _LANE_SEEDS.
+static inline uint32_t fmix32(uint32_t h) {
+    h ^= h >> 16;
+    h *= 0x85EBCA6Bu;
+    h ^= h >> 13;
+    h *= 0xC2B2AE35u;
+    h ^= h >> 16;
+    return h;
+}
+
+void fingerprint_rows(const int32_t* rows, int64_t n, int32_t width,
+                      const uint32_t* c1, const uint32_t* c2,
+                      uint32_t seed1, uint32_t seed2,
+                      uint32_t* hi_out, uint32_t* lo_out) {
+    for (int64_t k = 0; k < n; ++k) {
+        const int32_t* row = rows + k * width;
+        uint32_t s1 = 0, s2 = 0;
+        for (int32_t w = 0; w < width; ++w) {
+            uint32_t v = (uint32_t)row[w];
+            s1 += v * c1[w];
+            s2 += v * c2[w];
+        }
+        hi_out[k] = fmix32(s1 + seed1);
+        lo_out[k] = fmix32(s2 + seed2);
+    }
+}
+
+// Iterative Tarjan SCC over a CSR graph (the liveness fair-lasso
+// checker's scale path — Python per-node recursion tops out around a
+// few 1e7 nodes; this runs the 1e8-node graphs the 5-server election
+// quotient measures at).  comp_out[v] = component id; ids are assigned
+// in Tarjan completion order (reverse topological), which the caller
+// only uses for grouping.  Returns the number of components.
+int64_t scc_tarjan(int64_t n, const int64_t* indptr, const int64_t* dst,
+                   int64_t* comp_out) {
+    std::vector<int64_t> num(n, -1), low(n), stk, frame_v, frame_e;
+    std::vector<uint8_t> on_stk(n, 0);
+    stk.reserve(1024);
+    frame_v.reserve(1024);
+    frame_e.reserve(1024);
+    int64_t counter = 0, ncomp = 0;
+    for (int64_t root = 0; root < n; ++root) {
+        if (num[root] != -1) continue;
+        frame_v.push_back(root);
+        frame_e.push_back(indptr[root]);
+        num[root] = low[root] = counter++;
+        stk.push_back(root);
+        on_stk[root] = 1;
+        while (!frame_v.empty()) {
+            int64_t u = frame_v.back();
+            int64_t e = frame_e.back();
+            if (e < indptr[u + 1]) {
+                frame_e.back() = e + 1;
+                int64_t v = dst[e];
+                if (num[v] == -1) {
+                    num[v] = low[v] = counter++;
+                    stk.push_back(v);
+                    on_stk[v] = 1;
+                    frame_v.push_back(v);
+                    frame_e.push_back(indptr[v]);
+                } else if (on_stk[v] && num[v] < low[u]) {
+                    low[u] = num[v];
+                }
+            } else {
+                frame_v.pop_back();
+                frame_e.pop_back();
+                if (low[u] == num[u]) {
+                    int64_t w;
+                    do {
+                        w = stk.back();
+                        stk.pop_back();
+                        on_stk[w] = 0;
+                        comp_out[w] = ncomp;
+                    } while (w != u);
+                    ++ncomp;
+                }
+                if (!frame_v.empty()) {
+                    int64_t p = frame_v.back();
+                    if (low[u] < low[p]) low[p] = low[u];
+                }
+            }
+        }
+    }
+    return ncomp;
+}
+
+}  // extern "C"

@@ -87,18 +87,30 @@ FAIL_WIDTH = 1      # a successor exceeded a tensor-encoding capacity
 FAIL_PROBE = 2      # linear probe exceeded _MAX_PROBE (table too full)
 FAIL_STORE = 4      # more distinct states than Capacities.n_states
 FAIL_LEVEL = 8      # BFS deeper than Capacities.levels
+FAIL_INDEX = 64     # DDD engine: a discovery index past its ceiling
 
 _FAIL_TEXT = {
     FAIL_WIDTH: "state-width overflow (encoding capacity exceeded)",
     FAIL_PROBE: "fingerprint-table probe overflow (table too full)",
     FAIL_STORE: "state-store capacity exceeded",
     FAIL_LEVEL: "BFS level capacity exceeded",
+    FAIL_INDEX: "discovery index past the engine ceiling",
 }
 
 
 def decode_fail(fail_bits: int) -> str:
     return "; ".join(txt for bit, txt in _FAIL_TEXT.items()
                      if fail_bits & bit) or "unknown"
+
+
+def aggregate_coverage(table, cov) -> Counter:
+    """Per-action-family new-state counts from the per-lane counters."""
+    cov = np.asarray(cov).reshape(-1, len(table)).sum(axis=0)
+    out: Counter = Counter()
+    for a, inst in enumerate(table):
+        if cov[a]:
+            out[inst.family] += int(cov[a])
+    return out
 
 
 class SyncCounter:
@@ -110,6 +122,11 @@ class SyncCounter:
     def read(self, t: torch.Tensor):
         self.n += 1
         return t.tolist()
+
+    def wait(self, ev: torch.cuda.Event) -> None:
+        """Block the host until ``ev`` has completed."""
+        self.n += 1
+        ev.synchronize()
 
 
 def dedup_insert(tbl_hi, tbl_lo, key_hi, key_lo, active, syncs: SyncCounter):
@@ -494,11 +511,7 @@ class DeviceEngine:
                 f"device search aborted: {decode_fail(c['fail'])} "
                 f"(caps={self.caps}) — grow Capacities and rerun")
         levels = [1] + [int(x) for x in c["levels"][:c["lvl"]] if int(x) > 0]
-        cov = c["cov"][:self.A].cpu().numpy()
-        coverage: Counter = Counter()
-        for a, inst in enumerate(self.table):
-            if cov[a]:
-                coverage[inst.family] += int(cov[a])
+        coverage = aggregate_coverage(self.table, c["cov"][:self.A].cpu())
         violation = self._extract_trace() if c["viol_g"] >= 0 else None
         return EngineResult(
             n_states=c["n_states"], diameter=len(levels) - 1,

@@ -1,0 +1,555 @@
+"""Host-side exact fingerprint set for delayed duplicate detection — the
+port's copy of ``raft_tla_tpu/utils/keyset.py`` (numpy only).
+
+The DDD engine (ddd_engine.py) keeps EXACT dedup on the host: candidate
+keys stream off the device, and this module maintains the master set of
+every discovered state's 64-bit fingerprint, deduplicating pending
+candidates in *first-occurrence stream order* so discovery order — and
+therefore counts, levels, coverage attribution and traces — stays
+byte-identical to the table engines and the pure-Python oracle.
+
+Storage is **tiered sorted runs** (LSM-style), not one monolithic sorted
+array: each flush appends its new keys as one new sorted run — O(new) —
+and runs compact geometrically (adjacent runs merge when the older is no
+more than ``_RATIO``x the newer), so each key participates in O(log N)
+merges and per-flush cost does not scale with the master size (a
+monolith merged with ``np.insert`` rewrites the whole master every
+flush, which measurably decayed a long campaign's rate as it grew).
+Lookups (`contains`/`dedup` anti-join) searchsort each of the O(log N)
+runs.
+
+Capacity is host RAM: 8 bytes/state.  All operations are plain NumPy on
+sorted arrays; the merge primitive is a vectorized O(a+b) two-way merge
+of disjoint runs.
+
+Two master-set implementations share that storage scheme:
+
+- :class:`MasterKeys` — one set of tiers, single-threaded (the
+  ``RAFT_TLA_HOSTDEDUP=off`` arm).
+- :class:`PartitionedMasterKeys` — ``2^k`` partitions keyed by the
+  fingerprint's top ``k`` bits, each with its own LSM tiers.  ``dedup``
+  radix-splits the flush once, then runs per-partition
+  argsort/probe/merge as independent tasks on a process-shared
+  :func:`ThreadPoolExecutor <pool>` (NumPy's sort and searchsorted
+  release the GIL, so the tasks genuinely overlap), and reconstructs
+  first-occurrence stream order exactly from the per-partition index
+  vectors.  Geometric compaction is additionally **budgeted**: a merge
+  bigger than the per-flush budget carries a cursor across flushes
+  (:class:`_PendingMerge`), so no single flush carries an O(N) data-
+  movement spike.
+
+The two are observationally identical (same dedup index vectors, same
+``contains``/``len``/``array``).  The ``RAFT_TLA_HOSTDEDUP`` gate
+(:func:`host_dedup_enabled`) picks which one the DDD engine builds and
+whether the flush itself moves off-thread (utils/flushq.py).
+
+TLC's external-memory fingerprint-set regime, host-RAM-resident instead
+of disk-resident.
+"""
+
+from __future__ import annotations
+
+import functools
+import os
+import threading
+from concurrent.futures import ThreadPoolExecutor
+
+import numpy as np
+
+U64 = np.uint64
+
+# Geometric compaction ratio: after appending a run, adjacent runs merge
+# while the older run is <= _RATIO * the newer.  2 gives the classic
+# LSM bound (each key participates in <= log2(N/flush) merges) with at
+# most ~log2(N/flush) live runs.
+_RATIO = 2
+
+
+def pack_keys(hi: np.ndarray, lo: np.ndarray) -> np.ndarray:
+    """Fuse the (hi, lo) uint32 fingerprint lanes the device engines use
+    into one uint64 key per candidate."""
+    return (hi.astype(U64) << U64(32)) | lo.astype(U64)
+
+
+def _merge_disjoint(a: np.ndarray, b: np.ndarray) -> np.ndarray:
+    """Vectorized merge of two sorted arrays with no common keys (runs
+    are mutually disjoint by construction: a new run holds only keys
+    absent from every older run).  O(a+b) data movement + O(b log a)
+    searchsorted comparisons."""
+    if a.size == 0:
+        return b
+    if b.size == 0:
+        return a
+    out = np.empty(a.size + b.size, U64)
+    posb = np.searchsorted(a, b) + np.arange(b.size, dtype=np.int64)
+    amask = np.ones(out.size, bool)
+    amask[posb] = False
+    out[posb] = b
+    out[amask] = a
+    return out
+
+
+def _member(run: np.ndarray, keys: np.ndarray) -> np.ndarray:
+    """Boolean membership of ``keys`` in one sorted run."""
+    pos = np.searchsorted(run, keys)
+    inb = pos < run.size
+    hit = np.zeros(keys.shape, bool)
+    hit[inb] = run[pos[inb]] == keys[inb]
+    return hit
+
+
+def _probe_runs(runs: list[np.ndarray], keys: np.ndarray) -> np.ndarray:
+    """Boolean membership of ``keys`` across a list of sorted runs,
+    probed largest-run-first: each pass only probes keys still unknown,
+    and the largest run resolves most duplicates, so later (smaller)
+    runs see a shrinking candidate set.  Shared by ``contains`` and the
+    ``dedup`` anti-join (both flat and partitioned)."""
+    hit = np.zeros(keys.shape, bool)
+    for run in sorted(runs, key=lambda r: -r.size):
+        rem = np.flatnonzero(~hit)
+        if rem.size == 0:
+            break
+        hit[rem[_member(run, keys[rem])]] = True
+    return hit
+
+
+class MasterKeys:
+    """Tiered sorted runs of discovered-state fingerprints.
+
+    ``dedup(keys)`` is the only bulk-mutating operation: given one flush
+    of candidate keys in stream order, it returns the indices (into that
+    flush, ascending) of candidates that are genuinely new — first
+    occurrence within the flush AND absent from every run — and admits
+    exactly those keys as a new run (compacting tiers as needed).
+    Cross-flush first-occurrence order holds because flush i's new keys
+    are in the tiers before flush i+1 is examined.
+    """
+
+    def __init__(self, keys: np.ndarray | None = None):
+        if keys is None or keys.size == 0:
+            self._runs: list[np.ndarray] = []
+        else:
+            base = np.ascontiguousarray(keys, dtype=U64)
+            if np.any(base[1:] <= base[:-1]):
+                raise ValueError("master keys must be strictly sorted")
+            self._runs = [base]
+
+    def __len__(self) -> int:
+        return sum(int(r.size) for r in self._runs)
+
+    @property
+    def n_runs(self) -> int:
+        """Live tier count (diagnostic; O(log N) by construction)."""
+        return len(self._runs)
+
+    @property
+    def array(self) -> np.ndarray:
+        """The full sorted key set as one array (read-only).  Materializes
+        a merge of all runs — O(N); for tests and inspection, not the
+        hot path."""
+        v = self._runs[0] if len(self._runs) == 1 else \
+            functools.reduce(_merge_disjoint, self._runs, np.empty(0, U64))
+        v = v.view()
+        v.flags.writeable = False
+        return v
+
+    def seed(self, key: int) -> None:
+        """Insert one key (the initial state) if absent."""
+        self.dedup(np.asarray([key], U64))
+
+    def contains(self, keys: np.ndarray) -> np.ndarray:
+        return _probe_runs(self._runs, keys.astype(U64, copy=False))
+
+    def _append_run(self, run: np.ndarray) -> None:
+        self._runs.append(run)
+        # geometric compaction: merge newest-first while the older
+        # neighbour is small enough that the merge stays amortized
+        while (len(self._runs) >= 2
+               and self._runs[-2].size <= _RATIO * self._runs[-1].size):
+            b = self._runs.pop()
+            a = self._runs.pop()
+            self._runs.append(_merge_disjoint(a, b))
+
+    def dedup(self, keys: np.ndarray) -> np.ndarray:
+        """First-occurrence indices of new keys, in stream order; admits
+        the corresponding keys as a new tier."""
+        keys = keys.astype(U64, copy=False)
+        n = keys.size
+        if n == 0:
+            return np.empty(0, np.int64)
+        order = np.argsort(keys, kind="stable")   # stable: ties keep
+        sk = keys[order]                          # stream order
+        first = np.ones(n, bool)
+        first[1:] = sk[1:] != sk[:-1]
+        cand_idx = order[first]                   # first occurrence per key
+        cand_keys = sk[first]                     # sorted, unique
+        dup = _probe_runs(self._runs, cand_keys)
+        new_keys = cand_keys[~dup]                # sorted, disjoint from
+        if new_keys.size:                         # every existing run
+            self._append_run(np.ascontiguousarray(new_keys))
+        return np.sort(cand_idx[~dup])
+
+
+# ---------------------------------------------------------------------------
+# Partitioned master keys (RAFT_TLA_HOSTDEDUP on/auto arm)
+# ---------------------------------------------------------------------------
+
+# Default partition count (2^k, k=4).  Partition id = top k bits of the
+# fingerprint, so partition order == sorted-key order and the global
+# sorted view is just the concatenation of per-partition views.  16
+# partitions keeps per-partition tier merges ~N/16 while still giving a
+# pool of up to 16 workers independent tasks.
+DEFAULT_PARTS = 16
+
+ENV_HOSTDEDUP = "RAFT_TLA_HOSTDEDUP"
+
+
+def host_dedup_enabled(env: str | None = None) -> bool:
+    """Resolve the RAFT_TLA_HOSTDEDUP gate to a bool.
+
+    ``on``/``off`` force; ``auto`` (and unset) applies the measured
+    policy of the reference (RESULTS.md "Host dedup A/B"): ON iff the
+    host has >= 2 cores, where the partition pool and the background
+    flush worker have a second core to run on.
+    """
+    v = (env if env is not None else os.environ.get(ENV_HOSTDEDUP, "auto"))
+    v = v.strip().lower()
+    if v == "on":
+        return True
+    if v == "off":
+        return False
+    return (os.cpu_count() or 1) >= 2
+
+
+_POOL: ThreadPoolExecutor | None = None
+_POOL_LOCK = threading.Lock()
+
+
+def pool() -> ThreadPoolExecutor | None:
+    """Process-shared dedup thread pool, or None when this host cannot
+    overlap (ncpu < 2) — callers then run partition tasks inline.
+    Shared by every PartitionedMasterKeys in the process, so total
+    dedup parallelism is bounded by the host."""
+    global _POOL
+    ncpu = os.cpu_count() or 1
+    if ncpu < 2:
+        return None
+    with _POOL_LOCK:
+        if _POOL is None:
+            _POOL = ThreadPoolExecutor(
+                max_workers=min(ncpu, DEFAULT_PARTS),
+                thread_name_prefix="raft-tla-dedup")
+    return _POOL
+
+
+class _PendingMerge:
+    """A budgeted in-progress merge of two adjacent runs.
+
+    The merge target ``out`` is filled left-to-right in budget-sized
+    windows; both source runs stay in the partition's run list (probe-
+    visible — ``out`` holds garbage past ``opos``) until the merge
+    completes, at which point the caller splices ``out`` over them.
+    ``posb`` (final position of every b element in ``out``) is computed
+    once up front — O(b log a) — so each window is pure data movement.
+    """
+
+    __slots__ = ("idx", "a", "b", "posb", "out", "opos", "ja", "jb")
+
+    def __init__(self, idx: int, a: np.ndarray, b: np.ndarray):
+        self.idx = idx                       # position of `a` in runs
+        self.a = a
+        self.b = b
+        self.posb = np.searchsorted(a, b) + np.arange(b.size, dtype=np.int64)
+        self.out = np.empty(a.size + b.size, U64)
+        self.opos = 0                        # filled prefix of out
+        self.ja = 0                          # consumed prefix of a
+        self.jb = 0                          # consumed prefix of b
+
+    @property
+    def done(self) -> bool:
+        return self.opos >= self.out.size
+
+    def advance(self, budget: int) -> int:
+        """Fill up to ``budget`` more output slots; return slots moved."""
+        take = min(int(budget), self.out.size - self.opos)
+        if take <= 0:
+            return 0
+        hi = self.opos + take
+        jb2 = self.jb + int(np.searchsorted(self.posb[self.jb:], hi))
+        window = self.out[self.opos:hi]
+        bmask = np.zeros(take, bool)
+        bmask[self.posb[self.jb:jb2] - self.opos] = True
+        window[bmask] = self.b[self.jb:jb2]
+        na = take - (jb2 - self.jb)
+        window[~bmask] = self.a[self.ja:self.ja + na]
+        self.opos = hi
+        self.ja += na
+        self.jb = jb2
+        return take
+
+
+class _Partition:
+    """One high-bit partition: its own LSM tiers plus at most one
+    pending budgeted merge.  Not thread-safe on its own — the owning
+    PartitionedMasterKeys dispatches at most one task per partition."""
+
+    __slots__ = ("runs", "merge", "moved")
+
+    def __init__(self, base: np.ndarray | None = None):
+        self.runs: list[np.ndarray] = [] if base is None or base.size == 0 \
+            else [base]
+        self.merge: _PendingMerge | None = None
+        self.moved = 0                       # merge slots moved, last task
+
+    def _live_runs(self) -> list[np.ndarray]:
+        return self.runs
+
+    def compact(self, budget: int | None) -> None:
+        """Advance compaction by at most ``budget`` moved slots
+        (None = unbounded, flat-equivalent).  Invariant on exit when no
+        merge is pending: runs[i].size > _RATIO * runs[i+1].size."""
+        self.moved = 0
+        rem = np.inf if budget is None else int(budget)
+        while True:
+            if self.merge is not None:
+                m = self.merge
+                adv = m.advance(m.out.size if rem == np.inf else int(rem))
+                self.moved += adv
+                if rem != np.inf:
+                    rem -= adv
+                if not m.done:
+                    return                   # carry cursor to next flush
+                self.runs[m.idx:m.idx + 2] = [m.out]
+                self.merge = None
+                if rem <= 0:
+                    return
+                continue
+            # find the innermost adjacent pair violating the geometric
+            # invariant (scan from the newest end, like _append_run)
+            j = len(self.runs) - 2
+            while j >= 0 and self.runs[j].size > _RATIO * self.runs[j + 1].size:
+                j -= 1
+            if j < 0:
+                return
+            a, b = self.runs[j], self.runs[j + 1]
+            if a.size + b.size <= rem:
+                self.runs[j:j + 2] = [_merge_disjoint(a, b)]
+                self.moved += a.size + b.size
+                if rem != np.inf:
+                    rem -= a.size + b.size
+                continue
+            self.merge = _PendingMerge(j, a, b)
+            # loop: the pending branch advances it by the remaining budget
+
+    def append_run(self, run: np.ndarray, budget: int | None) -> None:
+        if self.merge is not None and self.merge.idx >= len(self.runs) - 1:
+            raise AssertionError("pending merge must precede appended run")
+        self.runs.append(run)
+        self.compact(budget)
+
+
+class PartitionedMasterKeys:
+    """Partitioned, pool-parallel, budget-compacted master key set.
+
+    Observationally identical to :class:`MasterKeys` (same dedup index
+    vectors, ``contains``/``len``/``array``); see the module docstring
+    for the ordering argument.  ``merge_budget`` bounds per-partition
+    merge data movement per flush (None = unbounded, spikes allowed).
+    """
+
+    def __init__(self, keys: np.ndarray | None = None, *,
+                 parts: int = DEFAULT_PARTS,
+                 merge_budget: int | None = None):
+        if parts < 1 or parts & (parts - 1):
+            raise ValueError("parts must be a power of two")
+        self._parts = parts
+        self._k = parts.bit_length() - 1
+        self._budget = merge_budget
+        if keys is None or keys.size == 0:
+            self._p = [_Partition() for _ in range(parts)]
+            return
+        base = np.ascontiguousarray(keys, dtype=U64)
+        if np.any(base[1:] <= base[:-1]):
+            raise ValueError("master keys must be strictly sorted")
+        self._p = [_Partition(s) for s in self._split_sorted(base)]
+
+    # -- partition addressing ------------------------------------------------
+
+    def _pids(self, keys: np.ndarray) -> np.ndarray:
+        if self._k == 0:
+            return np.zeros(keys.shape, np.int64)
+        return (keys >> U64(64 - self._k)).astype(np.int64)
+
+    def _split_sorted(self, base: np.ndarray) -> list[np.ndarray]:
+        """Split one sorted array into per-partition segments (top-k-bit
+        order == sorted order, so each segment is contiguous)."""
+        if self._k == 0:
+            return [base]
+        edges = np.arange(1, self._parts, dtype=U64) << U64(64 - self._k)
+        bnds = np.searchsorted(base, edges)
+        bnds = np.concatenate(([0], bnds, [base.size]))
+        return [np.ascontiguousarray(base[bnds[i]:bnds[i + 1]])
+                for i in range(self._parts)]
+
+    # -- read side -----------------------------------------------------------
+
+    def __len__(self) -> int:
+        return sum(int(r.size) for p in self._p for r in p.runs)
+
+    @property
+    def n_runs(self) -> int:
+        """Max live tier count over partitions (diagnostic, comparable
+        to the flat n_runs bound)."""
+        return max((len(p.runs) for p in self._p), default=0)
+
+    @property
+    def pending_merges(self) -> int:
+        """Partitions currently mid-merge (carry-cursor diagnostic)."""
+        return sum(1 for p in self._p if p.merge is not None)
+
+    @property
+    def last_flush_moved(self) -> int:
+        """Max per-partition merge data movement of the last dedup —
+        bounded by ``merge_budget`` (+ one budget-window overshoot from
+        an inline pair merge) when a budget is set."""
+        return max((p.moved for p in self._p), default=0)
+
+    @property
+    def array(self) -> np.ndarray:
+        """Full sorted key set (read-only, O(N) materialization)."""
+        segs = []
+        for p in self._p:
+            if p.runs:
+                segs.append(p.runs[0] if len(p.runs) == 1 else
+                            functools.reduce(_merge_disjoint, p.runs,
+                                             np.empty(0, U64)))
+        v = np.concatenate(segs) if segs else np.empty(0, U64)
+        v = v.view()
+        v.flags.writeable = False
+        return v
+
+    def seed(self, key: int) -> None:
+        self.dedup(np.asarray([key], U64))
+
+    def contains(self, keys: np.ndarray) -> np.ndarray:
+        keys = keys.astype(U64, copy=False)
+        pids = self._pids(keys)
+        hit = np.zeros(keys.shape, bool)
+        for pid in np.unique(pids):
+            sel = pids == pid
+            hit[sel] = _probe_runs(self._p[pid].runs, keys[sel])
+        return hit
+
+    # -- write side ----------------------------------------------------------
+
+    @staticmethod
+    def _dedup_partition(part: _Partition, keys: np.ndarray,
+                         idx: np.ndarray, budget: int | None) -> np.ndarray:
+        """Per-partition dedup task: keys/idx are this partition's slice
+        of the flush, idx in ascending stream order.  Returns the
+        global (flush-relative) indices of genuinely-new keys."""
+        if keys.size == 0:
+            part.compact(budget)             # keep carrying a cursor
+            return np.empty(0, np.int64)
+        order = np.argsort(keys, kind="stable")
+        sk = keys[order]
+        first = np.ones(keys.size, bool)
+        first[1:] = sk[1:] != sk[:-1]
+        cand_local = order[first]
+        cand_keys = sk[first]
+        dup = _probe_runs(part.runs, cand_keys)
+        new_keys = cand_keys[~dup]
+        if new_keys.size:
+            part.append_run(np.ascontiguousarray(new_keys), budget)
+        else:
+            part.compact(budget)
+        return idx[cand_local[~dup]]
+
+    def dedup(self, keys: np.ndarray) -> np.ndarray:
+        """First-occurrence indices of new keys, in stream order —
+        byte-identical to flat MasterKeys.dedup.  Why: partitions are
+        disjoint key spaces, so a key's first occurrence within its
+        partition slice IS its first occurrence in the flush; per-
+        partition results are global flush indices, and their sorted
+        concatenation is the flat result."""
+        keys = keys.astype(U64, copy=False)
+        if keys.size == 0:
+            return np.empty(0, np.int64)
+        pids = self._pids(keys)
+        # stable radix split: within a partition, indices stay ascending
+        order = np.argsort(pids, kind="stable")
+        bnds = np.searchsorted(pids[order],
+                               np.arange(self._parts + 1, dtype=np.int64))
+        tasks = []
+        for pid in range(self._parts):
+            lo, hi = int(bnds[pid]), int(bnds[pid + 1])
+            if hi > lo or self._p[pid].merge is not None:
+                idx = order[lo:hi]
+                tasks.append((self._p[pid], keys[idx], idx))
+            else:
+                self._p[pid].moved = 0
+        ex = pool()
+        if ex is not None and len(tasks) > 1:
+            futs = [ex.submit(self._dedup_partition, p, k, i, self._budget)
+                    for p, k, i in tasks]
+            parts_new = [f.result() for f in futs]
+        else:
+            parts_new = [self._dedup_partition(p, k, i, self._budget)
+                         for p, k, i in tasks]
+        if not parts_new:
+            return np.empty(0, np.int64)
+        return np.sort(np.concatenate(parts_new))
+
+
+# ---------------------------------------------------------------------------
+# Factories (gate-aware construction + checkpoint rebuild)
+# ---------------------------------------------------------------------------
+
+def new_master(partitioned: bool | None = None, *,
+               parts: int = DEFAULT_PARTS,
+               merge_budget: int | None = None):
+    """Fresh empty master set; ``partitioned=None`` resolves the gate."""
+    if partitioned is None:
+        partitioned = host_dedup_enabled()
+    if partitioned:
+        return PartitionedMasterKeys(parts=parts, merge_budget=merge_budget)
+    return MasterKeys()
+
+
+def master_from_keys(keys: np.ndarray, *, source: str = "checkpoint",
+                     partitioned: bool | None = None,
+                     parts: int = DEFAULT_PARTS,
+                     merge_budget: int | None = None):
+    """Rebuild a master set from an **unsorted** key log (checkpoint
+    resume).  Dedupe-checks before construction so a corrupt log raises
+    the stream-corrupt diagnostic naming the snapshot, not MasterKeys's
+    generic "must be strictly sorted".  The partitioned path radix-
+    splits first and sorts per partition on the shared pool, so
+    resume-time sort cost drops from one O(N log N) to parallel
+    O(N/2^k log N/2^k) tasks."""
+    if partitioned is None:
+        partitioned = host_dedup_enabled()
+    keys = np.ascontiguousarray(keys, dtype=U64)
+
+    def _checked_sort(seg: np.ndarray) -> np.ndarray:
+        s = np.sort(seg)
+        if np.any(s[1:] == s[:-1]):
+            raise ValueError(
+                f"checkpoint key log at {source!r} has duplicate keys "
+                "— stream corrupt")
+        return s
+
+    if not partitioned:
+        return MasterKeys(_checked_sort(keys))
+    m = PartitionedMasterKeys(parts=parts, merge_budget=merge_budget)
+    pids = m._pids(keys)
+    order = np.argsort(pids, kind="stable")
+    bnds = np.searchsorted(pids[order], np.arange(parts + 1, dtype=np.int64))
+    segs = [keys[order[bnds[i]:bnds[i + 1]]] for i in range(parts)]
+    ex = pool()
+    if ex is not None:
+        sorted_segs = list(ex.map(_checked_sort, segs))
+    else:
+        sorted_segs = [_checked_sort(s) for s in segs]
+    m._p = [_Partition(np.ascontiguousarray(s)) for s in sorted_segs]
+    return m

@@ -1,0 +1,53 @@
+"""Adaptive segment pacing — the port's copy of
+``raft_tla_tpu/utils/pacing.py``.
+
+The DDD engine runs its search as segments of ``budget`` chunks and
+retunes the budget after each one.
+
+Policy (the reference's):
+
+- aim each segment at ``target_s`` wall seconds (geometric scaling,
+  bounded to [0.25x, 2x] per step, clamped into [lo, hi]);
+- never *project* a segment past ``clamp_s`` at the worst per-chunk cost
+  ever observed (the reference's device watchdog; in the port it bounds
+  how long a deadline or SIGINT waits for a segment boundary);
+- the first segment carries the warm-up and is excluded from the timing
+  signal;
+- segments under 50 ms carry no usable signal and are skipped.
+"""
+
+from __future__ import annotations
+
+
+class SegmentPacer:
+    """Feed ``update(dt, executed)`` after every dispatch; read
+    ``budget`` for the next one."""
+
+    def __init__(self, seg_chunks: int, lo: int, hi: int,
+                 target_s: float, clamp_s: float):
+        self.budget = max(1, seg_chunks)   # 0/negative would spin forever
+        self.lo = lo
+        self.hi = hi
+        self.target_s = target_s
+        self.clamp_s = clamp_s
+        self.worst_s_per_chunk = 0.0
+        self._first = True
+
+    def update(self, dt: float, executed: int) -> int:
+        """``dt``: wall seconds of the completed dispatch (host-side cost
+        like pageout may be included — that overestimates chunk cost,
+        which is the safe direction for the watchdog).  ``executed``: the
+        chunk count the segment actually ran (pass the requested budget
+        when the engine has no executed count)."""
+        if self._first:
+            self._first = False
+            return self.budget
+        if dt <= 0.05:
+            return self.budget
+        self.worst_s_per_chunk = max(self.worst_s_per_chunk,
+                                     dt / max(1, executed))
+        scale = min(2.0, max(0.25, self.target_s / dt))
+        b = int(min(self.hi, max(self.lo, self.budget * scale)))
+        self.budget = max(self.lo, min(
+            b, int(self.clamp_s / self.worst_s_per_chunk)))
+        return self.budget
