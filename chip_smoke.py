@@ -19,16 +19,29 @@ Phases (each prints a line; any failure exits non-zero):
    without symmetry, then the dedup-key stage at |G| = 6 (also on 8,191
    rows, a ragged last block), 12, 24, 120 and 720 and with the deadvotes
    view; then faithful mode (the history stage) at |G| = 1, 6, 12 (rank
-   maps), 6 with deadvotes, and 120;
+   maps), 6 with deadvotes, and 120; then the expression stage (cfg
+   INVARIANT expressions over every operator and reducer, an index that
+   wraps and one that clamps, beside the registry invariants: 12 in one
+   step at |G| = 1 and at |G| = 6 on a ragged block, 11 in faithful mode),
+   each expression's column also against the program's plain evaluator
+   (ops/predprog.evaluate); and K1's time at the flagship layout with and
+   without ``commitIndex <= logLen``;
 2. K2 (csrc/fingerprint.cu) against the plain fingerprint, 1,048,576 rows
    at W = 60, 110 and 113, and 1,048,573 rows at W = 60;
 3. verified counts through the CLI entry (plain, SYMMETRY, VIEW and
    faithful), the seeded violations (exit 12, traces replay through the
    interpreter, the faithful trace shows the history) and a deadlock
-   (exit 11);
-4. the reference universe (3 servers, 2 values, t2 l1 m1) to exhaustion:
-   15,872,151 states, diameter 53, 40,060,419 transitions; then the store
-   audit with K2;
+   (exit 11); the expression ``count(role = 2) <= 1`` as a cfg invariant
+   (exit 12, the trace of the registry ``NaiveNoTwoLeaders``, the verdict
+   naming the expression); ``--engine ref`` and ``--engine host`` on the
+   verified configurations under 10^5 states (their counts; the host
+   engine launches K1 and never the plain step) and the seeded violation
+   (the host engine's trace equal to the oracle's); ``--stats`` on the
+   device engine (one line per segment, the reference's progress fields);
+4. the reference universe (3 servers, 2 values, t2 l1 m1) to exhaustion,
+   with the whole-line expression ``commitIndex <= logLen`` beside its
+   three registry invariants: 15,872,151 states, diameter 53, 40,060,419
+   transitions; then the store audit with K2;
 5. the flagship ``runs/MC3s2v.cfg`` (the same universe at MaxMsgs 2 with
    SYMMETRY Server) to exhaustion through the CLI: 94,396,461 orbits,
    diameter 57, 258,131,266 transitions and the per-level counts of
@@ -98,10 +111,34 @@ INT_OPS_PER_S = 67e12              # CUDA-core fp32 peak; int32 is no faster
 REAL = dict(servers=3, values=2, max_term=2, max_log=1, max_msgs=1,
             invariants="NoTwoLeaders LogMatching CommittedWithinLog")
 REAL_EXPECT = (15_872_151, 53, 40_060_419)
+# Phase 4 adds the expression twin of CommittedWithinLog on a line of its
+# own (a line with an expression is one whole-line expression).
+REAL_EXPR_INVARIANTS = REAL["invariants"] + "\n    commitIndex <= logLen"
 MAIN_CHUNK = 8192
 # The phase-4 wall on one H100 80GB HBM3 at 700 W before the dedup-key
-# stage existed (four runs of this script; PERF.md).
+# stage existed (four runs of this script; PERF.md), and with that stage
+# but without the expression (PERF.md section 5).
 REAL_WALL_BEFORE = (15.77, 18.19)
+REAL_WALL_NO_EXPR = 15.76
+
+# Expression invariants of phase 1: every operator and reducer, an index
+# that wraps (votedFor - 1 is -1 for Nil), indices that clamp (logLen is
+# one past the log; matchIndex + 7 past the row), int32 wrap-around.
+EXPRS = ("count(role = 2) <= 1", "commitIndex <= logLen",
+         "term[votedFor - 1] >= 1 \\/ votedFor = 0",
+         "logTerm[logLen] <= max(term) /\\ min(logVal) >= 0",
+         "term * 1073741824 * 4 = 0 => ~any(msgCount > 1)",
+         "-term[0] - count(TRUE) < nextIndex[matchIndex + 7]",
+         "logVal[term] /= 3")
+
+# The reference's ProgressRecord fields (raft_tla_tpu/obs/events.py), as a
+# literal: this script imports nothing of the JAX package.
+PROGRESS_FIELDS = (
+    "wall_s", "n_states", "level", "n_transitions", "dedup_hit_rate",
+    "states_per_sec", "inc_states_per_sec", "since_resume", "coverage",
+    "route_peak", "n_devices", "inv_evals", "phase_s", "device_rates",
+    "bin", "inflight", "flush_backlog", "upload_wait_ms", "prefetch_hits",
+    "export_rows", "dev_dedup_hits")
 
 # Phase 5: the flagship cfg and the counts of its complete check by the
 # JAX package's DDD engine (runs/flagship_r2_ddd.out, line 2).
@@ -426,6 +463,70 @@ def phase1(results):
         else:
             results.setdefault("step_err", 0)
             results["step_err"] = max(results["step_err"], err)
+    expression_stage(results, flag, fflag, full5, inv7)
+
+
+def expression_stage(results, flag, fflag, full5, inv7) -> None:
+    """K1's expression stage against the plain step and against the
+    program's plain evaluator; then K1's time with and without one
+    expression at the flagship layout, in turns."""
+    from raft_tla_tpu_torch.config import CheckConfig
+    from raft_tla_tpu_torch.models import invariants as inv_mod
+    from raft_tla_tpu_torch.ops import kernels, pallas_step, predprog
+    from raft_tla_tpu_torch.ops import state as st
+    dev = torch.device("cuda")
+    cases = [
+        ("full 3s/2v t2 l1 m2, 12 invariants", flag, full5, full5 + EXPRS,
+         (), MAIN_CHUNK),
+        ("full 3s/2v t2 l1 m2, Server, 12 invariants, ragged", flag, full5,
+         full5 + EXPRS, ("Server",), MAIN_CHUNK - 1),
+        ("faithful full 3s/2v t2 l1 m2, 11 invariants", fflag, inv7,
+         inv7 + EXPRS[:3] + ("max(term) <= 1",), (), MAIN_CHUNK),
+    ]
+    for name, b, base, invs, axes, n in cases:
+        rows = reachable_rows(CheckConfig(bounds=b, spec="full",
+                                          invariants=base, chunk=1024), n)
+        out = pallas_step.build_step(b, "full", invs, dev,
+                                     symmetry=axes)(rows)
+        ref = kernels.build_step(b, "full", invs, axes)(rows)
+        torch.cuda.synchronize()
+        bad, err = compare_step(out, ref)
+        val = ref["valid"]
+        succ, got = ref["svecs"][val], out["inv_ok"][val]
+        lay = st.Layout.of(b)
+        stage_bad = false_lanes = 0
+        for c, text in enumerate(invs):
+            if text in inv_mod.REGISTRY:
+                continue
+            prog = predprog.compile_program(inv_mod._expression(text), lay)
+            want = predprog.evaluate(prog, succ)
+            stage_bad += int((got[:, c] != want).sum())
+            false_lanes += int((~want).sum())
+        say(f"phase 1: K1 expression stage, {name}: rows {rows.shape[0]}, "
+            f"valid {int(val.sum())}, {len(invs)} invariants of which "
+            f"{len(invs) - len(base)} expressions (false on {false_lanes} "
+            f"lane-expression pairs); mismatches against the plain step "
+            f"{bad}, max_abs_err {err}; against the program's plain "
+            f"evaluator {stage_bad}")
+        if bad or stage_bad:
+            fail(f"K1's expression stage disagrees on {name}")
+        results["step_err"] = max(results.get("step_err", 0), err)
+    b = flag
+    rows = reachable_rows(CheckConfig(bounds=b, spec="full",
+                                      invariants=full5, chunk=1024),
+                          MAIN_CHUNK)
+    without = pallas_step.build_step(b, "full", full5, dev,
+                                     symmetry=("Server",))
+    with_expr = pallas_step.build_step(b, "full",
+                                       full5 + ("commitIndex <= logLen",),
+                                       dev, symmetry=("Server",))
+    times = [cuda_ms(lambda: fn(rows), 20)[0]
+             for fn in (without, with_expr, with_expr, without)]
+    say(f"phase 1: K1 at the flagship layout, |G| 6, {MAIN_CHUNK} rows, "
+        f"five registry invariants without / with commitIndex <= logLen "
+        f"(in turns: without, with, with, without): "
+        + ", ".join(f"{x:.4f}" for x in times) + " ms")
+    results["expr_stage_ms"] = times
 
 
 def phase2(results):
@@ -505,7 +606,7 @@ def seeded_violation(symmetry: tuple, faithful: bool = False) -> None:
         fail(f"seeded violation, symmetry {symmetry}, faithful {faithful}")
 
 
-def phase3():
+def phase3(results):
     from raft_tla_tpu_torch import check
     # (name, servers, values, spec, (t, l, m), cfg SYMMETRY, extra flags,
     #  verified count, verified diameter or None)
@@ -580,6 +681,125 @@ def phase3():
     say(f"phase 3: 1-server election --deadlock: exit {code}")
     if code != check.EXIT_DEADLOCK or "Deadlock reached" not in out:
         fail(f"deadlock: {out[-400:]}")
+    expression_violation()
+    other_engines(rows, results)
+    device_stats()
+
+
+def expression_violation() -> None:
+    """``count(role = 2) <= 1`` as a cfg expression: the registry
+    ``NaiveNoTwoLeaders``'s violation, state for state, named by its
+    text."""
+    argv = ["--spec", "election", "--max-term", "3", "--max-log", "0",
+            "--max-msgs", "1", "--chunk", "1024", "--cap", str(1 << 22)]
+    runs = []
+    for inv in ("NaiveNoTwoLeaders", "count(role = 2) <= 1"):
+        cfg = write_cfg("expr" if "(" in inv else "naive", 3, 1, inv)
+        code, _e, res, out = run_cli([cfg, *argv])
+        runs.append((code, res, out))
+    (c1, r1, _o1), (c2, r2, o2) = runs
+    same = r1.violation is not None and r2.violation is not None \
+        and r1.violation.trace == r2.violation.trace
+    named = "Error: Invariant count(role = 2) <= 1 is violated." in o2
+    say(f"phase 3: count(role = 2) <= 1 as a cfg expression: exit {c2} "
+        f"after {r2.n_states} states (NaiveNoTwoLeaders: exit {c1} after "
+        f"{r1.n_states}); traces equal state for state: {same} "
+        f"({len(r2.violation.trace) if r2.violation else 0} states); "
+        f"the verdict names the expression: {named}")
+    if c1 != c2 or c2 != 12 or not same or not named \
+            or r1.n_states != r2.n_states:
+        fail("the expression violation differs from the registry one")
+
+
+def other_engines(rows, results) -> None:
+    """``--engine ref`` and ``--engine host`` on the verified
+    configurations under 10^5 states (the oracle on a cheap subset: its
+    orbit keys cost milliseconds a state), then the seeded violation."""
+    from raft_tla_tpu_torch.config import Bounds, CheckConfig
+    from raft_tla_tpu_torch.engine import Engine
+    from raft_tla_tpu_torch.models import interp, refbfs, spec as SP
+    from raft_tla_tpu_torch.ops import kernels, pallas_fp, pallas_step
+    from raft_tla_tpu_torch.ops import msgbits as mb
+    t0 = time.monotonic()
+    pallas_step.launches = pallas_fp.launches = kernels.calls = 0
+    ref_names = ("election 2s/1v t2 l0 m2", "full 2s/2v t2 l1 m2",
+                 "election 2s/1v t2 l0 m2, SYMMETRY Server")
+    for (name, n, v, spec, (mt, ml, mm), stanza, extra, want_n,
+         want_d, want_t, invs) in rows:
+        if want_n >= 100_000:
+            continue
+        tag = "".join(c for c in f"v{n}{v}{spec}{stanza}{''.join(extra)}"
+                      if c.isalnum())
+        cfg = write_cfg(tag, n, v, invs, stanza)
+        for engine in ("host", "ref") if name in ref_names else ("host",):
+            t1 = time.monotonic()
+            code, _eng, res, out = run_cli([
+                cfg, "--spec", spec, "--max-term", str(mt), "--max-log",
+                str(ml), "--max-msgs", str(mm), "--chunk", "4096",
+                "--engine", engine, *extra])
+            got = (res.n_states, res.diameter, res.n_transitions) \
+                if res else None
+            say(f"phase 3: --engine {engine}, {name}: exit {code}, "
+                f"states/diameter/transitions {got}, "
+                f"{time.monotonic() - t1:.2f} s")
+            if code != 0 or got is None or got[0] != want_n \
+                    or (want_d is not None and got[1] != want_d) \
+                    or (want_t is not None and got[2] != want_t):
+                fail(f"--engine {engine}, {name}: {out[-400:]}")
+    b = Bounds(n_servers=3, n_values=1, max_term=3, max_log=0, max_msgs=4)
+    start = interp.init_state(b)._replace(
+        role=(SP.LEADER, SP.FOLLOWER, SP.CANDIDATE), term=(2, 3, 3),
+        votedFor=(1, 3, 0), vGrant=(0b011, 0, 0b100),
+        msgs=(((mb.rv_response(3, 1, 1, 2)), 1),))
+    cfgv = CheckConfig(bounds=b, spec="election",
+                       invariants=("NaiveNoTwoLeaders",), chunk=256)
+    want = refbfs.check(cfgv, init_override=start)
+    got = Engine(cfgv).check(init_override=start)
+    same = got.violation is not None and want.violation is not None \
+        and got.violation.trace == want.violation.trace \
+        and (got.n_states, got.levels, got.n_transitions) == \
+        (want.n_states, want.levels, want.n_transitions)
+    launches = {"step": pallas_step.launches,
+                "fingerprint": pallas_fp.launches,
+                "plain step": kernels.calls}
+    say(f"phase 3: seeded NaiveNoTwoLeaders violation, --engine host on "
+        f"the card against the oracle: states {got.n_states}, trace of "
+        f"{len(got.violation.trace) if got.violation else 0} states, equal "
+        f"to the oracle's: {same}; the host engine's runs: K1 launches "
+        f"{launches['step']}, K2 launches {launches['fingerprint']}, plain "
+        f"step calls {launches['plain step']}; "
+        f"{time.monotonic() - t0:.1f} s")
+    if not same:
+        fail("the host engine's seeded violation differs from the oracle's")
+    if launches["step"] < 1 or launches["plain step"]:
+        fail(f"the host engine did not run on K1 alone: {launches}")
+    results["launches_phase3_host"] = launches
+
+
+def device_stats() -> None:
+    """``--stats`` on the device engine: one line per segment, the
+    reference's progress fields."""
+    err = io.StringIO()
+    cfg = write_cfg("stats", 2, 2, "NoTwoLeaders")
+    code, eng, res, out = run_cli([
+        cfg, "--spec", "full", "--max-term", "2", "--max-log", "1",
+        "--max-msgs", "2", "--chunk", "64", "--stats"], err)
+    lines = [json.loads(ln) for ln in err.getvalue().splitlines()
+             if ln.startswith("{")]
+    want = {"wall_s", "n_states", "level", "n_transitions", "dedup_hit_rate",
+            "states_per_sec", "inc_states_per_sec", "since_resume",
+            "coverage", "inv_evals"}
+    keys_ok = bool(lines) and all(
+        want <= set(d) <= set(PROGRESS_FIELDS) for d in lines)
+    segs = eng.stats.get("segments", 0) if eng else 0
+    say(f"phase 3: --stats --engine device: exit {code}, {len(lines)} "
+        f"lines for {segs} segments of {eng.stats['chunks'] if eng else 0} "
+        f"chunks, keys {sorted(lines[-1]) if lines else None} among the "
+        f"reference's fields: {keys_ok}; last line n_states "
+        f"{lines[-1]['n_states'] if lines else None}")
+    if code != 0 or not keys_ok or len(lines) != segs \
+            or (lines[-1]["n_states"], res.n_states) != (74897, 74897):
+        fail("--stats on the device engine")
 
 
 def audit_store(eng, n_states: int, label: str) -> None:
@@ -645,18 +865,21 @@ def report_run(label: str, eng, res, wall: float, launches: dict) -> None:
 
 
 def phase4(results):
-    cfg = write_cfg("real", REAL["servers"], REAL["values"],
-                    REAL["invariants"])
+    cfg = write_cfg("real-expr", REAL["servers"], REAL["values"],
+                    REAL_EXPR_INVARIANTS)
     argv = [cfg, "--spec", "full", "--max-term", str(REAL["max_term"]),
             "--max-log", str(REAL["max_log"]), "--max-msgs",
             str(REAL["max_msgs"]), "--chunk", str(MAIN_CHUNK),
             "--cap", str(1 << 25), "--levels", "128"]
     code, eng, res, out, wall, launches = drive(argv, "real-size run")
     got = (res.n_states, res.diameter, res.n_transitions)
-    say(f"phase 4: real size full 3s/2v t2 l1 m1: exit {code}; states "
+    say(f"phase 4: real size full 3s/2v t2 l1 m1, invariants "
+        f"{', '.join(eng.config.invariants)}: exit {code}; states "
         f"{got[0]}, diameter {got[1]}, transitions {got[2]} (expected "
-        f"{REAL_EXPECT}); K1 runs its orbit loop at |G| = 1; wall before "
-        f"the dedup-key stage {REAL_WALL_BEFORE[0]}-{REAL_WALL_BEFORE[1]} s")
+        f"{REAL_EXPECT}); K1 runs its orbit loop at |G| = 1 and the "
+        f"expression stage on every valid lane; wall {wall:.2f} s, without "
+        f"the expression {REAL_WALL_NO_EXPR} s, before the dedup-key stage "
+        f"{REAL_WALL_BEFORE[0]}-{REAL_WALL_BEFORE[1]} s")
     report_run("phase 4", eng, res, wall, launches)
     if code != 0 or got != REAL_EXPECT:
         fail("real-size counts differ from the reference")
@@ -1124,10 +1347,13 @@ def main() -> int:
         kernels.append({
             "name": name, "route": route, "source": src, "replaces": repl,
             "launches": r["launches"],
+            # phase 4's K1 launches each ran the expression stage
             "launches_by_path": {
-                path: results[f"launches_{path}"][name]
-                for path in ("phase4", "phase5", "phase6_sym", "phase6",
-                             "phase7", "phase9", "phase10", "phase12")},
+                {"phase4": "phase4_expression"}.get(path, path):
+                    results[f"launches_{path}"][name]
+                for path in ("phase3_host", "phase4", "phase5",
+                             "phase6_sym", "phase6", "phase7", "phase9",
+                             "phase10", "phase12")},
             "audit_launches": {
                 "phase10": results["audit_launches_phase10"][name]},
             "mismatches": r["mismatches"],

@@ -10,14 +10,18 @@ The port covers the reference's main path, ``python -m raft_tla_tpu.check``
 with the device engine, in parity and faithful mode (``--faithful``: the
 history variables as state), with SYMMETRY (Server, Value) and the
 registered VIEWs: cfg -> :class:`CheckConfig` -> a BFS resident on the GPU
--> verdict, trace and TLC exit code; and the DDD engine (``--engine ddd``,
+-> verdict, trace and TLC exit code; the DDD engine (``--engine ddd``,
 ``ddd_engine.py``), whose exact dedup runs on the host (``utils/keyset``,
-``utils/native``) while the card expands and filters.  Two hand-written
-Hopper kernels carry both:
+``utils/native``) while the card expands and filters; the host engine
+(``--engine host``, ``engine.py``) and the oracle (``--engine ref``,
+``models/refbfs.py``); registry and expression invariants
+(``frontend/predicate.py``); and the TLC twin (``--emit-tlc``,
+``models/tla_export.py``).  Two hand-written Hopper kernels carry the
+engines:
 
-- ``csrc/step.cu`` — the fused frontier step with its history stage and
-  its dedup-key stage (view, orbit-minimal fingerprint)
-  (``ops/pallas_step.py``);
+- ``csrc/step.cu`` — the fused frontier step with its history stage, its
+  dedup-key stage (view, orbit-minimal fingerprint) and its expression
+  stage (``ops/predprog.py``) (``ops/pallas_step.py``);
 - ``csrc/fingerprint.cu`` — the two-lane fingerprint (``ops/pallas_fp.py``).
 
 Each has a plain PyTorch version beside it; a wrapper runs the plain version

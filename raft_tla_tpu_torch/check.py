@@ -8,17 +8,23 @@ the CPU (``--device cpu``).  The result lines and exit codes are the
 reference's: 0 no error, 11 deadlock, 12 invariant violation, 14 stopped
 before completion (``--deadline`` or SIGINT), 1 error.
 
-Two engines: ``--engine device`` (the default: the whole search in the
-card's memory) and ``--engine ddd`` (exact dedup on the host, the card
-expands and filters; ``--block``, ``--retention``, ``--keep-levels``,
-``--deadline``, ``--stats``, ``--host-dedup``, ``--prefetch``).
+Four engines: ``--engine device`` (the default: the whole search in the
+card's memory), ``--engine ddd`` (exact dedup on the host, the card expands
+and filters; ``--block``, ``--retention``, ``--keep-levels``,
+``--deadline``, ``--host-dedup``, ``--prefetch``; other engines ignore
+them, as the reference's do), ``--engine host`` (the step per chunk on the
+card, a fingerprint set on the host) and ``--engine ref`` (the
+pure-Python oracle).  ``--stats`` (one progress line per segment) and
+``--checkpoint``/``--resume`` need ``device`` or ``ddd``.  ``--emit-tlc
+DIR`` writes the run's TLC twin, then runs it.
 
-This port supports both engines in parity and faithful mode
-(``--faithful``: the history variables carried as state, with the
-``*Hist`` invariants), with SYMMETRY on the Server and Value axes
-(``--symmetry`` or the cfg stanza), the registered VIEWs (``--view``) and
-registry invariants.  The reference's other flags and stanzas are refused
-with the ROADMAP.md item that will bring them.
+This port supports them in parity and faithful mode (``--faithful``: the
+history variables carried as state, with the ``*Hist`` invariants), with
+SYMMETRY on the Server and Value axes (``--symmetry`` or the cfg stanza),
+the registered VIEWs (``--view``), registry invariants and whole-line
+predicate expressions in the INVARIANT stanza.  The reference's other
+flags and stanzas are refused with the ROADMAP.md item that will bring
+them.
 """
 
 from __future__ import annotations
@@ -35,16 +41,16 @@ EXIT_ERROR = 1
 
 # Reference flags that this slice refuses, with the ROADMAP.md queue item.
 _NOT_PORTED = {
-    "--property": "liveness",
-    "--simulate": "simulation and fleets",
-    "--emit-tlc": "TLC export",
-    "--route": "item 9, gated variants",
-    "--device-dedup": "item 9, gated variants",
-    "--devdedup": "item 9, gated variants",
+    "--property": "item 5, liveness",
+    "--simulate": "item 8, simulation and fleets",
+    "--route": "item 7, gated variants",
+    "--device-dedup": "item 7, gated variants",
+    "--devdedup": "item 7, gated variants",
     "--reshard-to": "item 11, parallel engines",
-    "--events": "item 13, serving and host glue (obs)",
+    "--events": "item 4, run events and campaigns",
 }
-ENGINES = ("device", "ddd")
+ENGINES = ("device", "ddd", "host", "ref")
+_DEVICE_ENGINES = ("device", "ddd")    # the reference's device-class engines
 
 
 def build_argparser() -> argparse.ArgumentParser:
@@ -59,9 +65,11 @@ def build_argparser() -> argparse.ArgumentParser:
                    help="Next-disjunct subset (default: full)")
     p.add_argument("--engine", default="device",
                    help="device (the reference's default: the search in "
-                        "the card's memory) or ddd (delayed duplicate "
+                        "the card's memory), ddd (delayed duplicate "
                         "detection: exact dedup on the host, the card "
-                        "expands and filters)")
+                        "expands and filters), host (the step per chunk "
+                        "on the card, dedup in a host set) or ref (the "
+                        "pure-Python oracle)")
     p.add_argument("--max-term", type=int, default=3,
                    help="CONSTRAINT: currentTerm[i] <= N (default 3)")
     p.add_argument("--max-log", type=int, default=2,
@@ -105,8 +113,9 @@ def build_argparser() -> argparse.ArgumentParser:
                         "boundary past this wall budget (exit 14, snapshot "
                         "saved with --checkpoint)")
     p.add_argument("--stats", action="store_true",
-                   help="--engine ddd: one JSON line of run stats per host "
-                        "flush and level end, on stderr")
+                   help="one JSON line of run stats per search segment on "
+                        "stderr (device and ddd engines; ddd: per host "
+                        "flush and level end)")
     p.add_argument("--host-dedup", default=None,
                    choices=("auto", "on", "off"),
                    help="--engine ddd: partitioned master keys and a "
@@ -140,6 +149,9 @@ def build_argparser() -> argparse.ArgumentParser:
                         "votesGranted of non-Candidates)")
     p.add_argument("--device", default="cuda", choices=("cuda", "cpu"),
                    help="where the search runs (default: cuda)")
+    p.add_argument("--emit-tlc", metavar="DIR",
+                   help="also write MCraft.tla/MCraft.cfg for a stock-TLC "
+                        "parity run, then continue")
     for flag in _NOT_PORTED:
         p.add_argument(flag, nargs="?", const=True, default=None,
                        help=argparse.SUPPRESS)
@@ -171,14 +183,23 @@ def resolve_check_config(cfg, spec: str = "full", max_term: int = 3,
         raise ValueError(
             f"unsupported INIT/NEXT ({cfg.init!r}/{cfg.next!r}): only the "
             "spec's Init and Next are compiled")
-    exprs = [nm for nm in cfg.invariants if cfgparse.is_expression(nm)]
-    if exprs:
-        raise not_ported(f"invariant expression {exprs[0]!r}",
-                         "expression invariants")
-    cfgparse.resolve_names(cfg.invariants, inv_mod.REGISTRY, "invariant",
+    # Whole-line predicate expressions bypass the registry and must parse
+    # against the Raft state schema instead.
+    named = [nm for nm in cfg.invariants if not cfgparse.is_expression(nm)]
+    cfgparse.resolve_names(named, inv_mod.REGISTRY, "invariant",
                            cfg=cfg, path=path)
+    for nm in cfg.invariants:
+        if not cfgparse.is_expression(nm):
+            continue
+        try:
+            inv_mod._expression(nm)
+        except ValueError as e:
+            lineno = cfg.line_of("invariant", nm)
+            where = f"{path or 'cfg'} line {lineno}: " if lineno else ""
+            raise ValueError(
+                f"{where}invariant expression {nm!r} does not parse: {e}")
     if cfg.properties:
-        raise not_ported(f"PROPERTY {cfg.properties}", "liveness")
+        raise not_ported(f"PROPERTY {cfg.properties}", "item 5, liveness")
     sym_names = set(cfg.symmetry) | ({"Server"} if symmetry else set())
     bad_sym = sym_names - {"Server", "SymServer", "Value", "SymValue",
                            "SymServerValue"}
@@ -251,21 +272,21 @@ def run(argv=None) -> tuple:
                     f"(ROADMAP.md queue A: {item})")
     if args.engine not in ENGINES:
         p.error(f"--engine {args.engine} is not ported to raft_tla_tpu_torch "
-                "yet (ROADMAP.md queue A: item 5, other engines); only "
-                f"{' and '.join(ENGINES)}")
-    ddd_only = [f for f, v in (("--block", args.block),
-                               ("--deadline", args.deadline),
-                               ("--host-dedup", args.host_dedup),
-                               ("--prefetch", args.prefetch))
-                if v is not None]
-    ddd_only += [f for f, v in (("--retention frontier",
-                                 args.retention != "full"),
-                                ("--keep-levels", args.keep_levels),
-                                ("--stats", args.stats)) if v]
-    if ddd_only and args.engine != "ddd":
-        p.error(f"{ddd_only[0]} requires --engine ddd")
-    if args.keep_levels and args.retention != "frontier":
-        p.error("--keep-levels requires --retention frontier")
+                "yet (ROADMAP.md queue A: items 9 and 11, the paged, "
+                f"streamed and parallel engines); only {', '.join(ENGINES)}")
+    # The reference's engine gates (its check.main), with its exit code 2.
+    if (args.checkpoint or args.resume) and \
+            args.engine not in _DEVICE_ENGINES:
+        p.error(f"--checkpoint/--resume require a device-class engine "
+                f"(got {args.engine}); other engines would silently "
+                "ignore them")
+    if args.deadline is not None and args.engine != "ddd":
+        p.error(f"--deadline requires --engine ddd (got {args.engine}); "
+                "only the ddd engine stops losslessly at a segment "
+                "boundary — dropping it silently would run unbounded")
+    if args.stats and args.engine not in _DEVICE_ENGINES:
+        p.error(f"--stats requires a device-class engine "
+                f"(got {args.engine})")
     import os
     for flag, env in (("host_dedup", "RAFT_TLA_HOSTDEDUP"),
                       ("prefetch", "RAFT_TLA_PREFETCH")):
@@ -297,11 +318,30 @@ def run(argv=None) -> tuple:
     if config.view:
         print(f"View: {config.view} (counting view-quotient states)")
 
+    if args.emit_tlc:
+        from raft_tla_tpu_torch.models import tla_export
+        try:
+            tla, cfgp = tla_export.export(args.emit_tlc, b,
+                                          config.invariants,
+                                          parity_view=not b.history,
+                                          symmetry=config.symmetry,
+                                          view=config.view,
+                                          spec=config.spec)
+        except (OSError, ValueError) as e:
+            print(f"Error: {e}", file=sys.stderr)
+            return EXIT_ERROR, None, None
+        print(f"TLC parity artifacts: {tla}, {cfgp}")
+
     t0 = time.monotonic()
     eng = None
     try:
         eng = make_engine(args, config)
-        if args.engine == "ddd":
+        if args.engine == "ref":
+            from raft_tla_tpu_torch.models import refbfs
+            result = refbfs.check(config)
+        elif args.engine == "host":
+            result = eng.check()
+        elif args.engine == "ddd":
             result = eng.check(on_progress=_stats_cb(args),
                                checkpoint=args.checkpoint,
                                checkpoint_every_s=args.checkpoint_every,
@@ -309,7 +349,8 @@ def run(argv=None) -> tuple:
         else:
             result = eng.check(checkpoint=args.checkpoint,
                                checkpoint_every_s=args.checkpoint_every,
-                               resume=args.resume)
+                               resume=args.resume,
+                               on_progress=_stats_cb(args))
     except Exception as e:
         print(f"Error: {e}", file=sys.stderr)
         return EXIT_ERROR, eng, None
@@ -339,7 +380,12 @@ def run(argv=None) -> tuple:
 
 def make_engine(args, config):
     """The engine of parsed CLI arguments, sized as the reference's CLI
-    sizes it."""
+    sizes it (None for the oracle, which is a function)."""
+    if args.engine == "ref":
+        return None
+    if args.engine == "host":
+        from raft_tla_tpu_torch.engine import Engine
+        return Engine(config, device=args.device)
     if args.engine == "ddd":
         from raft_tla_tpu_torch.ddd_engine import DDDCapacities, DDDEngine
         from raft_tla_tpu_torch.models import spec as S

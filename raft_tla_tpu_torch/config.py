@@ -14,7 +14,8 @@ checkpoint moves between the two packages.
 Scope: parity and faithful mode (``Bounds.history``: the proof-only history
 variables carried as state, ops/loguniv.py), SYMMETRY on the Server and
 Value axes, the registered VIEWs (models/views.py), registry invariants
-only.  Everything else raises :class:`NotImplementedError` naming the ROADMAP.md queue item
+and whole-line predicate expressions (frontend/predicate.py).  Everything
+else raises :class:`NotImplementedError` naming the ROADMAP.md queue item
 that will bring it; nothing runs something else.
 """
 
@@ -109,7 +110,8 @@ class CheckConfig:
 
     bounds: Bounds = dataclasses.field(default_factory=Bounds)
     spec: str = "full"                     # full | election | replication
-    invariants: tuple = ("NoTwoLeaders",)  # registry names
+    invariants: tuple = ("NoTwoLeaders",)  # registry names or
+    #   whole-line predicate expressions (frontend/predicate.py)
     symmetry: tuple = ()                   # TLC SYMMETRY: axes of
     #   ("Server", "Value"); the dedup key is the orbit-minimal fingerprint
     chunk: int = 1024                      # frontier states expanded per step
@@ -119,7 +121,7 @@ class CheckConfig:
 
     def __post_init__(self) -> None:
         from raft_tla_tpu_torch.models.invariants import (
-            HISTORY_REGISTRY, REGISTRY)
+            HISTORY_REGISTRY, REGISTRY, _expression)
         from raft_tla_tpu_torch.models.spec import SPECS
         if not self.bounds.history:
             hist = [nm for nm in self.invariants if nm in HISTORY_REGISTRY]
@@ -149,8 +151,6 @@ class CheckConfig:
                     f"(known: {sorted(VIEWS)})")
         for nm in self.invariants:
             if nm not in REGISTRY:
-                raise not_ported(f"invariant {nm!r} (only the registry "
-                                 f"names {sorted(REGISTRY)} are)",
-                                 "expression invariants")
+                _expression(nm)             # ValueError if it does not parse
         if self.chunk < 1:
             raise ValueError(f"chunk must be >= 1, got {self.chunk}")

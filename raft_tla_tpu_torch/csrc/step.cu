@@ -9,7 +9,7 @@
 // action family's guard and effect, the history updates and the allLogs
 // union (faithful mode), canonicalize (message-slot sort, election-slot
 // sort), pack, the dedup key (VIEW, then the orbit-minimal fingerprint
-// under SYMMETRY), invariants, StateConstraint.
+// under SYMMETRY), invariants (registry and expression), StateConstraint.
 //
 // What bounds it on the H100.  Not every lane is enabled: on the flagship
 // universe 34-42% of the (row, action lane) pairs of stored rows are
@@ -106,6 +106,18 @@
 // reorders its columns.  The election slots are remapped into registers
 // and re-sorted per group element, like the message slots.
 //
+// Invariants.  The registry invariants are code paths of `invariant`, by
+// the code of models/invariants.CODES.  A cfg expression
+// (frontend/predicate.py) has no code path: the host lowers it to a flat
+// program of scalar ops over the packed row (ops/predprog.py), and
+// `run_expr` interprets it on the canonical successor in the slot, where
+// the registry invariants read it.  The invariant codes and the programs
+// lie in device memory (a code < 0 is an expression whose program starts
+// at word -1 - code), so any number of invariants and any cfg expression
+// run on one library per layout; the programs' registers live in local
+// memory.  With no expression the stage costs one code read per
+// invariant.
+//
 // Contract (held against the plain step): `valid` equal on every lane;
 // every other output bit-equal where `valid` is true.  The other outputs
 // of an invalid lane are left unwritten (the engine reads them only where
@@ -167,7 +179,7 @@ enum Invariant {
   INV_ALL_LOGS_PREFIX_CLOSED
 };
 
-constexpr int kMaxInv = 8;
+constexpr int kExprRegs = 64;      // ops/predprog.MAX_REGS
 constexpr int kThreads = 128;      // threads per block
 // Blocks a multiprocessor should hold at once (__launch_bounds__): caps a
 // thread's registers at 65,536 / (128 * 4) = 128.
@@ -178,11 +190,6 @@ constexpr int kWp = W | 1;         // shared-memory stride of a row or slot
 constexpr int kMaxValues = 15;     // the 4-bit message value field
 constexpr int kViewDeadvotes = 1;  // models/views.KERNEL_CODES
 constexpr unsigned kFull = 0xFFFFFFFFu;
-
-struct InvList {
-  int n;
-  int code[kMaxInv];
-};
 
 struct Limits {
   int max_term, max_log, max_msgs, max_dup;
@@ -900,6 +907,63 @@ __device__ __forceinline__ bool invariant(const St& s, int code) {
   }
 }
 
+// ops/predprog.OPS order.
+enum ExprOp {
+  X_CONST, X_LOAD, X_LOADIX, X_NEG, X_NOT, X_ADD, X_SUB, X_MUL, X_EQ, X_NE,
+  X_LT, X_LE, X_GT, X_GE, X_AND, X_OR, X_IMPL, X_MIN, X_MAX, X_RET
+};
+
+// An expression invariant: the program at `prog`, five words an
+// instruction (op, dst, a, b, c), over the row `row`.  Arithmetic wraps
+// modulo 2^32 as the reference's int32 does; an indexed load wraps a
+// negative index once and clamps it into range, as a JAX gather does.
+__device__ __noinline__ bool run_expr(const int* row,
+                                      const int* __restrict__ prog) {
+  int r[kExprRegs];
+  for (const int* p = prog;; p += 5) {
+    const int op = __ldg(p), d = __ldg(p + 1), a = __ldg(p + 2),
+              b = __ldg(p + 3), c = __ldg(p + 4);
+    int v;
+    switch (op) {
+      case X_CONST: v = a; break;
+      case X_LOAD: v = row[a]; break;
+      case X_LOADIX: {
+        int i = r[c];
+        i = i < 0 ? i + b : i;
+        v = row[a + (i < 0 ? 0 : (i > b - 1 ? b - 1 : i))];
+        break;
+      }
+      case X_NEG: v = static_cast<int>(0u - static_cast<uint32_t>(r[a])); break;
+      case X_NOT: v = r[a] == 0; break;
+      case X_ADD:
+        v = static_cast<int>(static_cast<uint32_t>(r[a]) +
+                             static_cast<uint32_t>(r[b]));
+        break;
+      case X_SUB:
+        v = static_cast<int>(static_cast<uint32_t>(r[a]) -
+                             static_cast<uint32_t>(r[b]));
+        break;
+      case X_MUL:
+        v = static_cast<int>(static_cast<uint32_t>(r[a]) *
+                             static_cast<uint32_t>(r[b]));
+        break;
+      case X_EQ: v = r[a] == r[b]; break;
+      case X_NE: v = r[a] != r[b]; break;
+      case X_LT: v = r[a] < r[b]; break;
+      case X_LE: v = r[a] <= r[b]; break;
+      case X_GT: v = r[a] > r[b]; break;
+      case X_GE: v = r[a] >= r[b]; break;
+      case X_AND: v = r[a] != 0 && r[b] != 0; break;
+      case X_OR: v = r[a] != 0 || r[b] != 0; break;
+      case X_IMPL: v = r[a] == 0 || r[b] != 0; break;
+      case X_MIN: v = r[a] < r[b] ? r[a] : r[b]; break;
+      case X_MAX: v = r[a] > r[b] ? r[a] : r[b]; break;
+      default: return r[a] != 0;  // X_RET
+    }
+    r[d] = v;
+  }
+}
+
 __device__ __forceinline__ bool constraint_ok(const St& s, const Limits& lim) {
   bool ok = true;
   int msgs = 0;
@@ -1157,7 +1221,9 @@ __global__ void __launch_bounds__(kThreads, kMinBlocks)
     step_kernel(const int* __restrict__ vecs, int B, int lgR,
                 const int* __restrict__ table, int A, const Consts cs,
                 const int8_t* __restrict__ groupg, int P, int Q, int nv,
-                const int16_t* __restrict__ rmaps, int view, InvList inv,
+                const int16_t* __restrict__ rmaps, int view,
+                const int* __restrict__ inv_codes, int n_inv,
+                const int* __restrict__ prog,
                 Limits lim, Outputs out) {
   extern __shared__ int sm[];
   __shared__ int n_queued;
@@ -1258,8 +1324,13 @@ __global__ void __launch_bounds__(kThreads, kMinBlocks)
     if (lead) {
       out.fp_hi[lane_g] = static_cast<int>(key >> 32);
       out.fp_lo[lane_g] = static_cast<int>(key & 0xFFFFFFFFu);
-      for (int c = 0; c < inv.n; ++c)
-        out.inv[lane_g * inv.n + c] = invariant(s, inv.code[c]);
+      for (int c = 0; c < n_inv; ++c) {
+        const int code = __ldg(inv_codes + c);
+        out.inv[lane_g * n_inv + c] =
+            code >= 0 ? invariant(s, code)
+                      : run_expr(reinterpret_cast<const int*>(&s),
+                                 prog - code - 1);
+      }
       out.con[lane_g] = constraint_ok(s, lim);
     }
     // Phase 3: the warp writes its staged successors, word-coalesced.
@@ -1316,27 +1387,27 @@ extern "C" int rt_step_occupancy(int B, int A, int n_group, int* blocks,
 // Q = 1 and no value row is read).  `rmaps`: in a faithful layout with
 // nv > 0, Q rows of U int16 rank maps on the device
 // (ops/symmetry.kernel_rank_maps); otherwise unused and may be null.
-// `svecs` must be 16-byte aligned.
+// `inv_codes`: the n_inv invariant codes, and `prog`: the expression
+// programs, int32 on the device (ops/predprog.kernel_tables).  `svecs` must
+// be 16-byte aligned.
 extern "C" int rt_step_launch(const int* vecs, int B, const int* table, int A,
                               const uint32_t* c1, const uint32_t* c2,
                               const int8_t* group, int P, int Q, int nv,
                               const int16_t* rmaps, int view,
                               const int* inv_codes, int n_inv,
+                              const int* prog,
                               int max_term, int max_log, int max_msgs,
                               int max_dup, int* svecs, uint8_t* valid,
                               uint8_t* ovf, int* fp_hi, int* fp_lo,
                               uint8_t* inv_ok, uint8_t* con_ok, void* stream) {
-  if (n_inv < 0 || n_inv > kMaxInv || A < 1 || A > kMaxLanes || P < 1 ||
-      Q < 1 || nv < 0 || nv > kMaxValues || (nv == 0 && Q != 1) ||
-      reinterpret_cast<uintptr_t>(svecs) % 16 != 0)
+  if (n_inv < 0 || (n_inv > 0 && (inv_codes == nullptr || prog == nullptr)) ||
+      A < 1 || A > kMaxLanes || P < 1 || Q < 1 || nv < 0 || nv > kMaxValues ||
+      (nv == 0 && Q != 1) || reinterpret_cast<uintptr_t>(svecs) % 16 != 0)
     return static_cast<int>(cudaErrorInvalidValue);
 #if RT_E > 0
   if (nv > 0 && rmaps == nullptr) return static_cast<int>(cudaErrorInvalidValue);
 #endif
   if (B <= 0) return 0;
-  InvList inv{};
-  inv.n = n_inv;
-  for (int k = 0; k < n_inv; ++k) inv.code[k] = inv_codes[k];
   const Limits lim{max_term, max_log, max_msgs, max_dup};
   Consts cs;
   for (int w = 0; w < W; ++w) {
@@ -1353,6 +1424,7 @@ extern "C" int rt_step_launch(const int* vecs, int B, const int* table, int A,
   if (err != cudaSuccess) return static_cast<int>(err);
   const Outputs out{svecs, valid, ovf, fp_hi, fp_lo, inv_ok, con_ok};
   step_kernel<<<blocks, kThreads, smem, static_cast<cudaStream_t>(stream)>>>(
-      vecs, B, lgR, table, A, cs, group, P, Q, nv, rmaps, view, inv, lim, out);
+      vecs, B, lgR, table, A, cs, group, P, Q, nv, rmaps, view, inv_codes,
+      n_inv, prog, lim, out);
   return static_cast<int>(cudaGetLastError());
 }

@@ -72,6 +72,7 @@ from raft_tla_tpu_torch.device_engine import (
     aggregate_coverage, decode_fail)
 from raft_tla_tpu_torch.engine import DEADLOCK, EngineResult, Violation
 from raft_tla_tpu_torch.models import interp, invariants as inv_mod, spec as S
+from raft_tla_tpu_torch.obs.events import RunTelemetry
 from raft_tla_tpu_torch.ops import bitpack, pallas_step
 from raft_tla_tpu_torch.ops import state as st
 from raft_tla_tpu_torch.ops import symmetry as sym
@@ -1048,32 +1049,26 @@ class DDDEngine:
                                     self.SEG_CLAMP_S)
         budget = pacer.budget
         last_ckpt = time.monotonic()
-        since_resume = resume is None
-        prev = {"wall": 0.0, "n": n_states}
+        tel = RunTelemetry(config=self.config, on_progress=on_progress,
+                           resumed=resume is not None, n0=n_states, t0=t0)
 
         def progress():
-            if on_progress is None:
+            if not tel.active:
                 return
             # the inclusive count (states + pending keys awaiting dedup),
             # as the reference's stats stream reports it
             n_incl = n_states + sum(len(k) for k in pend["keys"])
             if worker is not None:
                 n_incl += worker.inclusive_extra()
-            wall = time.monotonic() - t0
-            reported = max(n_states, n_incl)
-            dt = wall - prev["wall"]
-            inc = max(0, reported - prev["n"]) / dt if dt > 0 else 0.0
-            prev["wall"], prev["n"] = wall, max(prev["n"], reported)
-            on_progress({
-                "wall_s": round(wall, 3), "n_states": reported,
-                "level": len(level_ends), "n_transitions": n_trans,
-                "dedup_hit_rate": round(1.0 - n_states / max(1, n_trans),
-                                        4),
-                "states_per_sec": round(reported / max(wall, 1e-9), 1),
-                "inc_states_per_sec": round(inc, 1),
-                "since_resume": since_resume,
-                "coverage": dict(aggregate_coverage(self.table, cov)),
-                "export_rows": export_rows})
+            tel.segment(
+                n_states=n_states, n_incl=n_incl, level=len(level_ends),
+                n_transitions=n_trans,
+                coverage=dict(aggregate_coverage(self.table, cov)),
+                flush_backlog=worker.backlog() if worker else None,
+                upload_wait_ms=round(prefetcher.wait_s * 1e3, 3)
+                if prefetcher else None,
+                prefetch_hits=prefetcher.hits if prefetcher else None,
+                export_rows=export_rows)
 
         n_trans_mark = n_trans   # n_trans as of the current block's start
         while not stopped:

@@ -33,6 +33,11 @@ one small stats vector; :attr:`DeviceEngine.stats` counts them, with the
 chunks and (on the card) the device time of the steps (``step_s``) and of
 the dedup inserts (``dedup_s``).
 
+With an ``on_progress`` callback (the CLI's ``--stats``) the chunks run in
+segments paced as the reference's are (utils/pacing.py, about 8 s each),
+and each segment ends with one :class:`~raft_tla_tpu_torch.obs.events.
+ProgressRecord` (one more host read, the coverage counters).
+
 Results do not depend on ``chunk``: a key's winner is the smallest flat
 index, and chunks walk rows in order.
 
@@ -54,10 +59,11 @@ import torch
 from raft_tla_tpu_torch.config import CheckConfig
 from raft_tla_tpu_torch.engine import DEADLOCK, EngineResult, Violation
 from raft_tla_tpu_torch.models import interp, invariants as inv_mod, spec as S
+from raft_tla_tpu_torch.obs.events import RunTelemetry
 from raft_tla_tpu_torch.ops import pallas_fp, pallas_step
 from raft_tla_tpu_torch.ops import state as st
 from raft_tla_tpu_torch.ops import symmetry as sym
-from raft_tla_tpu_torch.utils import ckpt
+from raft_tla_tpu_torch.utils import ckpt, pacing
 
 I32, I64 = torch.int32, torch.int64
 EMPTY = -1                  # table sentinel: both words all-ones
@@ -209,6 +215,11 @@ def dedup_insert(tbl_hi, tbl_lo, key_hi, key_lo, active, syncs: SyncCounter):
 class DeviceEngine:
     """One exhaustive checker on one device; reusable across runs."""
 
+    # Segment pacing under on_progress (the reference's values).
+    SEG_TARGET_S = 8.0
+    SEG_CLAMP_S = 25.0
+    SEG_MIN, SEG_MAX = 16, 1 << 16
+
     def __init__(self, config: CheckConfig, caps: Capacities | None = None,
                  device="cuda"):
         self.device = torch.device(device)
@@ -231,6 +242,7 @@ class DeviceEngine:
             symmetry=tuple(config.symmetry), view=config.view)
         self.stats = {}
         self.carry = None
+        self.seg_chunks = 64        # initial segment budget; then paced
 
     # -- carry ----------------------------------------------------------------
 
@@ -446,34 +458,61 @@ class DeviceEngine:
         c["c"] = 0
 
     def _run(self, max_chunks: int | None = None, checkpoint=None,
-            checkpoint_every_s: float = 600.0, init_key=None) -> bool:
+             checkpoint_every_s: float = 600.0, init_key=None,
+             tel=None) -> bool:
         """Advance the search by at most ``max_chunks`` chunks (None: to
-        the end); returns whether it is done."""
+        the end); returns whether it is done.  With an active ``tel`` the
+        chunks run in paced segments, each closed by a progress record."""
         steps, last = 0, time.monotonic()
+        pacer = None
+        if tel is not None and tel.active:
+            pacer = pacing.SegmentPacer(self.seg_chunks, self.SEG_MIN,
+                                        self.SEG_MAX, self.SEG_TARGET_S,
+                                        self.SEG_CLAMP_S)
+            seg, t_seg = 0, time.monotonic()
         while not self._done():
             n_chunks = -(-(self.carry["lvl_end"] - self.carry["lvl_start"])
                          // self.config.chunk)
             if self.carry["c"] < n_chunks:
                 if max_chunks is not None and steps >= max_chunks:
+                    if pacer is not None and seg:
+                        self._progress(tel)
                     return False
                 self._chunk()
                 self.stats["chunks"] = self.stats.get("chunks", 0) + 1
                 steps += 1
+                if pacer is not None:
+                    seg += 1
             self._advance()
+            if pacer is not None and (seg >= pacer.budget or self._done()):
+                self._progress(tel)
+                self.seg_chunks = pacer.update(time.monotonic() - t_seg, seg)
+                seg, t_seg = 0, time.monotonic()
             if checkpoint and time.monotonic() - last >= checkpoint_every_s:
                 self.save_checkpoint(checkpoint, init_key)
                 last = time.monotonic()
         return True
 
+    def _progress(self, tel) -> None:
+        """Close a segment: one progress record (the reference's)."""
+        c = self.carry
+        cov = aggregate_coverage(self.table, c["cov"][:self.A].cpu())
+        self._syncs.n += 1
+        self.stats["segments"] = self.stats.get("segments", 0) + 1
+        tel.segment(n_states=c["n_states"], level=c["lvl"],
+                    n_transitions=c["n_trans"], coverage=dict(cov))
+
     def check(self, init_override: interp.PyState | None = None,
               checkpoint: str | None = None,
               checkpoint_every_s: float = 600.0,
               resume: str | None = None,
-              max_chunks: int | None = None) -> EngineResult:
+              max_chunks: int | None = None,
+              on_progress=None) -> EngineResult:
         """Run the search from Init (or ``init_override``, or a ``resume``
         checkpoint) to the end, or for at most ``max_chunks`` chunks
         (then ``complete`` is False and ``checkpoint``, if given, holds the
-        carry)."""
+        carry).  ``on_progress``, if given, receives the reference's
+        progress record (a dict) after every segment."""
         t0 = time.monotonic()
         bounds = self.bounds
         init_py = init_override if init_override is not None \
@@ -496,7 +535,11 @@ class DeviceEngine:
                                    interp.constraint_ok(init_py, bounds), key)
         if resume:
             self.load_checkpoint(resume, init_key)
-        done = self._run(max_chunks, checkpoint, checkpoint_every_s, init_key)
+        tel = RunTelemetry(config=self.config, on_progress=on_progress,
+                           resumed=resume is not None,
+                           n0=1 if resume is None else None, t0=t0)
+        done = self._run(max_chunks, checkpoint, checkpoint_every_s, init_key,
+                         tel)
         if not done and checkpoint:
             self.save_checkpoint(checkpoint, init_key)
         if self._events is not None:

@@ -12,11 +12,15 @@ a batch of tensor structs (one bool per state, leading dims kept).
 ``csrc/step.cu`` evaluates the same predicates per lane, by the code of
 :data:`CODES`.  The three history invariants (:data:`HISTORY_REGISTRY`)
 read the faithful-mode fields and are accepted only with ``Bounds.history``
-(config.py).  Registry names only; expression invariants are not ported
-(ROADMAP.md queue A).
+(config.py).  Any other name is a whole-line predicate expression over the
+14 parity fields (frontend/predicate.py): its Python face unpacks the state
+and evaluates it with numpy, as the reference's does; its torch face is the
+batched evaluator; K1 runs it as the flat program of ops/predprog.py.
 """
 
 from __future__ import annotations
+
+import functools
 
 import torch
 
@@ -227,12 +231,46 @@ CODES = {
 }
 
 
+@functools.lru_cache(maxsize=None)
+def _expression(text: str):
+    """Compile a non-registry invariant as a frontend predicate over the
+    Raft state schema (cached: cfg text recurs per step build)."""
+    from raft_tla_tpu_torch.frontend.predicate import compile_predicate
+    from raft_tla_tpu_torch.ops.state import STATE_FIELDS
+    return compile_predicate(text, fields=STATE_FIELDS)
+
+
 def py_invariant(name: str):
-    return REGISTRY[name][0]
+    if name in REGISTRY:
+        return REGISTRY[name][0]
+    pred = _expression(name)
+
+    def check(s, bounds) -> bool:
+        import numpy as np
+        from raft_tla_tpu_torch.models import interp
+        from raft_tla_tpu_torch.ops import state as st
+        struct = st.unpack(interp.to_vec(s, bounds), st.Layout.of(bounds))
+        return bool(pred.ev(struct, np))
+
+    return check
 
 
 def torch_invariant(name: str, bounds: Bounds):
-    """The batched torch predicate of ``name`` for ``bounds``."""
+    """The batched torch predicate of ``name`` for ``bounds``: one bool per
+    state, leading dims kept."""
+    if name not in REGISTRY:
+        pred = _expression(name)
+
+        def check(st):
+            lead = st["role"].shape[:-1]
+            n = 1
+            for d in lead:
+                n *= d
+            flat = {f: st[f].reshape((n,) + st[f].shape[len(lead):])
+                    for f in pred.reads}
+            return pred.ev_torch(flat, n, st["role"].device).reshape(lead)
+
+        return check
     fn = REGISTRY[name][1]
     if name in HISTORY_REGISTRY:
         return lambda st: fn(st, bounds)

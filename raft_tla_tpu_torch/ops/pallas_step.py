@@ -10,7 +10,8 @@ same dict (``svecs``, ``valid``, ``overflow``, ``fp_hi``, ``fp_lo``,
 keys: the kernel takes the group's permutations
 (ops/symmetry.kernel_tables), in faithful mode under Value symmetry the
 rank maps (ops/symmetry.kernel_rank_maps), and the view's code
-(models/views.KERNEL_CODES).
+(models/views.KERNEL_CODES); the invariants are the kernel's codes and
+expression programs (ops/predprog.kernel_tables).
 
 The kernel is compiled per layout (servers, log capacity, message slots
 and, in faithful mode, election slots, allLogs words and the log
@@ -30,11 +31,10 @@ import numpy as np
 import torch
 
 from raft_tla_tpu_torch.config import Bounds
-from raft_tla_tpu_torch.models import invariants as inv_mod
 from raft_tla_tpu_torch.models import spec as SP
 from raft_tla_tpu_torch.models import views
 from raft_tla_tpu_torch.ops import build
-from raft_tla_tpu_torch.ops import kernels
+from raft_tla_tpu_torch.ops import kernels, predprog
 from raft_tla_tpu_torch.ops import fingerprint as fpr
 from raft_tla_tpu_torch.ops import state as st
 from raft_tla_tpu_torch.ops import symmetry as sym
@@ -91,7 +91,7 @@ def _lib(bounds: Bounds):
                     ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p,
                     ctypes.c_void_p] + [ctypes.c_int] * 3
                    + [ctypes.c_void_p, ctypes.c_int]
-                   + [ctypes.c_void_p, ctypes.c_int]
+                   + [ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p]
                    + [ctypes.c_int] * 4 + [ctypes.c_void_p] * 8)
     fn.restype = ctypes.c_int
     W = st.Layout.of(bounds).width
@@ -136,9 +136,10 @@ def build_step(bounds: Bounds, spec: str = "full", invariants: tuple = (),
     table = torch.tensor(SP.lane_table(bounds, spec), dtype=torch.int32,
                          device=device).reshape(-1).contiguous()
     A = table.numel() // 5
-    codes = [inv_mod.CODES[nm] for nm in invariants]
-    n_inv = len(codes)
-    inv_arr = (ctypes.c_int * max(1, n_inv))(*codes)
+    codes, prog = predprog.kernel_tables(tuple(invariants), bounds)
+    n_inv = codes.size
+    codes = torch.as_tensor(codes, device=device)
+    prog = torch.as_tensor(prog, device=device)
     c = np.ascontiguousarray(fpr.lane_constants(W), dtype=np.uint32)
     consts = [(ctypes.c_uint32 * W)(*row) for row in c]   # host memory
     group = torch.as_tensor(sym.kernel_tables(bounds, symmetry),
@@ -151,9 +152,9 @@ def build_step(bounds: Bounds, spec: str = "full", invariants: tuple = (),
     fixed = (table.data_ptr(), A, ctypes.cast(consts[0], ctypes.c_void_p),
              ctypes.cast(consts[1], ctypes.c_void_p), group.data_ptr(), P, Q,
              nv, rmaps.data_ptr() if rmaps.numel() else None,
-             views.KERNEL_CODES[view], ctypes.cast(inv_arr, ctypes.c_void_p),
-             n_inv, bounds.max_term, bounds.max_log, bounds.max_msgs,
-             bounds.max_dup)
+             views.KERNEL_CODES[view], codes.data_ptr() if n_inv else None,
+             n_inv, prog.data_ptr(), bounds.max_term, bounds.max_log,
+             bounds.max_msgs, bounds.max_dup)
     names = ("svecs", "valid", "overflow", "fp_hi", "fp_lo", "inv_ok",
              "con_ok")
 
@@ -181,5 +182,6 @@ def build_step(bounds: Bounds, spec: str = "full", invariants: tuple = (),
         launches += 1
         return dict(zip(names, outs))
 
-    step.keep = (table, consts, inv_arr, group, rmaps)  # what `fixed` points to
+    step.keep = (table, consts, codes, prog, group, rmaps)  # what `fixed`
+    #                                                          points to
     return step

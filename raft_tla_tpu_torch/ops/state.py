@@ -44,6 +44,9 @@ import torch
 from raft_tla_tpu_torch.config import Bounds
 from raft_tla_tpu_torch.models.spec import FOLLOWER, NIL
 
+# Also the reference's RAFT_SCHEMA (frontend/raft_schema.py), name for name
+# and, in Layout.shapes, shape for shape: the fields an INVARIANT
+# expression may read (models/invariants._expression).
 STATE_FIELDS = ("role", "term", "votedFor", "commitIndex", "logLen",
                 "logTerm", "logVal", "vResp", "vGrant",
                 "nextIndex", "matchIndex", "msgHi", "msgLo", "msgCount")

@@ -46,7 +46,7 @@ Three forms of the same arithmetic:
   :func:`kernel_tables` and :func:`kernel_rank_maps`.
 
 The reference's prescan ladder and sig-prune are gated variants that give
-the same keys bit for bit; they are not ported (ROADMAP.md queue A item 9).
+the same keys bit for bit; they are not ported (ROADMAP.md queue A item 7).
 """
 
 from __future__ import annotations

@@ -98,18 +98,24 @@ def test_cli_result_lines_match_jax_cli(tmp_path, args, invariant, servers,
 
 def test_cli_refuses_what_is_not_ported(tmp_path):
     cfg = write_cfg(tmp_path / "m.cfg")
-    with pytest.raises(SystemExit) as e:
-        _run(cli.main, [cfg, "--emit-tlc", "out.tla"])
-    assert e.value.code == 2
+    for flag in ("--property", "--events"):
+        with pytest.raises(SystemExit) as e:
+            _run(cli.main, [cfg, flag, "x"])
+        assert e.value.code == 2
     view = write_cfg(tmp_path / "v.cfg", extra="VIEW MyView\n")
     code, _, err = _run(cli.main, [view, "--device", "cpu"])
     jcode, _, jerr = _run(jcli.main, [view, "--engine", "ref"])
     assert code == jcode == cli.EXIT_ERROR
     assert "VIEW MyView not supported: parity mode" in err
     assert err.splitlines()[-1] == jerr.splitlines()[-1]
+    # An expression that does not parse: the reference's error, line and
+    # column included, and its exit code.
     expr = write_cfg(tmp_path / "e.cfg", invariant="\\A i : role[i] <= 2")
     code, _, err = _run(cli.main, [expr, "--device", "cpu"])
-    assert code == cli.EXIT_ERROR and "expression invariants" in err
+    jcode, _, jerr = _run(jcli.main, [expr, "--engine", "ref"])
+    assert code == jcode == cli.EXIT_ERROR
+    assert "does not parse: predicate syntax error at column 1" in err
+    assert err.splitlines()[-1] == jerr.splitlines()[-1]
     if not torch.cuda.is_available():       # the default device is cuda
         code, _, err = _run(cli.main, [cfg, "--max-term", "2"])
         assert code == cli.EXIT_ERROR and "no GPU" in err

@@ -139,3 +139,67 @@ def test_engine_on_the_card_reproduces_the_verified_toy(cuda):
                       chunk=1024)
     res = DeviceEngine(cfg, Capacities(n_states=1 << 14)).check()
     assert (res.n_states, res.diameter, res.violation) == (3014, 17, None)
+
+
+# Expression invariants covering every operator and reducer, an index that
+# wraps (votedFor - 1 for Nil), one that clamps, int32 wrap-around.
+EXPRS = ("count(role = 2) <= 1", "commitIndex <= logLen",
+         "term[votedFor - 1] >= 1 \\/ votedFor = 0",
+         "logTerm[logLen] <= max(term) /\\ min(logVal) >= 0",
+         "term * 1073741824 * 4 = 0 => ~any(msgCount > 1)",
+         "-term[0] - count(TRUE) < nextIndex[matchIndex + 7]",
+         "logVal[term] /= 3")
+
+
+@pytest.mark.parametrize("kw,axes", [
+    (dict(n_servers=3, n_values=2, max_term=2, max_log=1, max_msgs=2), ()),
+    (dict(n_servers=3, n_values=2, max_term=2, max_log=1, max_msgs=2),
+     ("Server",)),
+    (FAITHFUL, ()),
+], ids=["full-3s2v", "full-3s2v-Server", "faithful-3s2v"])
+def test_step_kernel_expression_stage_matches_plain_step(cuda, kw, axes):
+    """K1's expression stage: 12 or 14 invariants, registry and expression
+    interleaved, against the plain step and the program's plain
+    evaluator."""
+    from raft_tla_tpu_torch.models import invariants as inv_mod
+    from raft_tla_tpu_torch.ops import predprog
+    from raft_tla_tpu_torch.ops import state as st
+    b = Bounds(**kw)
+    base = INVS + HIST if b.history else INVS
+    invs = base + EXPRS
+    # the engine without the expressions: its Init check is the numpy
+    # path, where an index past a field (matchIndex + 7) raises
+    eng = DeviceEngine(CheckConfig(bounds=b, spec="full", invariants=base,
+                                   chunk=512), Capacities(n_states=1 << 18))
+    res = eng.check(max_chunks=40)
+    rows = eng.carry["store"][:min(res.n_states, 2048)]
+    got = pallas_step.build_step(b, "full", invs, cuda, symmetry=axes)(rows)
+    want = kernels.build_step(b, "full", invs, axes)(rows)
+    val = want["valid"]
+    assert torch.equal(got["valid"], val)
+    for k in ("svecs", "overflow", "fp_hi", "fp_lo", "inv_ok", "con_ok"):
+        diff = got[k] != want[k]
+        if diff.dim() > 2:
+            diff = diff.flatten(2).any(-1)
+        assert not (diff & val).any(), k
+    succ = want["svecs"][val]
+    lay = st.Layout.of(b)
+    for c, text in enumerate(invs):
+        if text in EXPRS:
+            prog = predprog.compile_program(inv_mod._expression(text), lay)
+            assert torch.equal(got["inv_ok"][val][:, c],
+                               predprog.evaluate(prog, succ)), text
+
+
+def test_host_engine_on_the_card_launches_k1(cuda):
+    """``--engine host`` on the card: the verified toy, every chunk through
+    K1 and none through the plain step."""
+    from raft_tla_tpu_torch.engine import Engine
+    cfg = CheckConfig(bounds=Bounds(n_servers=2, n_values=1, max_term=2,
+                                    max_log=0, max_msgs=2),
+                      spec="election", invariants=("NoTwoLeaders",),
+                      chunk=256)
+    k1, plain = pallas_step.launches, kernels.calls
+    res = Engine(cfg).check()
+    assert (res.n_states, res.diameter, res.violation) == (3014, 17, None)
+    assert pallas_step.launches > k1 and kernels.calls == plain

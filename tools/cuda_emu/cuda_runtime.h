@@ -20,6 +20,7 @@ using std::min;
 #define __device__
 #define __host__
 #define __forceinline__ inline
+#define __noinline__
 #define __shared__ static
 #define __launch_bounds__(...)
 struct dim3 { unsigned x = 1, y = 1, z = 1; };

@@ -32,10 +32,9 @@ sys.path.insert(0, str(ROOT))
 from raft_tla_tpu_torch.config import Bounds, CheckConfig  # noqa: E402
 from raft_tla_tpu_torch.device_engine import (  # noqa: E402
     Capacities, DeviceEngine)
-from raft_tla_tpu_torch.models import invariants as inv_mod  # noqa: E402
 from raft_tla_tpu_torch.models import spec as SP, views  # noqa: E402
 from raft_tla_tpu_torch.ops import fingerprint as fpr  # noqa: E402
-from raft_tla_tpu_torch.ops import kernels, pallas_step  # noqa: E402
+from raft_tla_tpu_torch.ops import kernels, pallas_step, predprog  # noqa: E402
 from raft_tla_tpu_torch.ops import state as st, symmetry as sym  # noqa: E402
 
 HERE = Path(__file__).resolve().parent
@@ -50,6 +49,15 @@ FULL5 = ("NoTwoLeaders", "LogMatching", "CommittedWithinLog",
 INV7 = ("NoTwoLeaders", "LogMatching", "CommittedWithinLog",
         "LeaderCompleteness", "ElectionSafetyHist", "LeaderCompletenessHist",
         "AllLogsPrefixClosed")
+# Expression invariants that cover every operator and reducer, an index
+# that wraps (votedFor - 1 is -1 for Nil), one that clamps, int32
+# wrap-around; with FULL5 and the registry twin of the first, 12 in all.
+EXPRS = ("count(role = 2) <= 1", "commitIndex <= logLen",
+         "term[votedFor - 1] >= 1 \\/ votedFor = 0",
+         "logTerm[logLen] <= max(term) /\\ min(logVal) >= 0",
+         "term * 1073741824 * 4 = 0 => ~any(msgCount > 1)",
+         "-term[0] - count(TRUE) < nextIndex[matchIndex + 7]",
+         "logVal[term] /= 3")
 
 
 def binary(source: str, main: str, defines: dict, flags: list) -> Path:
@@ -100,8 +108,9 @@ def k1_case(name, b, spec, invs, axes, view, rows, flags) -> bool:
     np.array([B, A, W, P, Q, nv, views.KERNEL_CODES[view], len(invs),
               b.max_term, b.max_log, b.max_msgs, b.max_dup],
              np.int32).tofile(d / "meta.i32")
-    np.array([inv_mod.CODES[x] for x in invs] or [0],
-             np.int32).tofile(d / "inv.i32")
+    codes, prog = predprog.kernel_tables(invs, b)
+    (codes if codes.size else np.zeros(1, np.int32)).tofile(d / "inv.i32")
+    prog.tofile(d / "prog.i32")
     rows.numpy().astype(np.int32).tofile(d / "vecs.i32")
     table.tofile(d / "table.i32")
     c = fpr.lane_constants(W).astype(np.uint32)
@@ -145,11 +154,15 @@ def k1(flags) -> bool:
     for axes, view in (((), None), (("Server", "Value"), "deadvotes")):
         ok &= k1_case(f"flagship {axes} {view}", flag, "full", FULL5, axes,
                       view, small, flags)
+    ok &= k1_case("flagship, expressions", flag, "full",
+                  FULL5 + EXPRS, (), None, small, flags)
     rows = reachable_rows(fflag, "full", INV7, 600)
     for axes, view in (((), None), (("Server",), None),
                        (("Server", "Value"), None), (("Server",), "deadvotes")):
         ok &= k1_case(f"faithful {axes} {view}", fflag, "full", INV7, axes,
                       view, rows, flags)
+    ok &= k1_case("faithful, expressions", fflag, "full", INV7 + EXPRS[:3],
+                  (), None, rows[::3].contiguous(), flags)
     for b, invs in ((five, ("NoTwoLeaders",)), (ffive, INV7)):
         rows = reachable_rows(b, "election", invs, 40)
         ok &= k1_case(f"election {b.n_servers}s/2v{' faithful' * b.history}"

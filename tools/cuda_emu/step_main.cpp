@@ -36,6 +36,7 @@ int main(int, char** argv) {
   const int B = m[0], A = m[1], W = m[2], n_inv = m[7];
   if (W != rt_step_width()) return 3;
   const auto codes = load<int>(d, "inv.i32");
+  const auto prog = load<int>(d, "prog.i32");
   const auto vecs = load<int>(d, "vecs.i32");
   const auto table = load<int>(d, "table.i32");
   const auto c1 = load<uint32_t>(d, "c1.u32"), c2 = load<uint32_t>(d, "c2.u32");
@@ -51,7 +52,7 @@ int main(int, char** argv) {
   const int err = rt_step_launch(
       vecs.data(), B, table.data(), A, c1.data(), c2.data(), group.data(),
       m[3], m[4], m[5], rmaps.empty() ? nullptr : rmaps.data(), m[6],
-      codes.data(), n_inv, m[8], m[9], m[10], m[11], svecs, valid.data(),
+      codes.data(), n_inv, prog.data(), m[8], m[9], m[10], m[11], svecs, valid.data(),
       ovf.data(), hi.data(), lo.data(), inv.data(), con.data(), nullptr);
   if (err) return 4;
   save(d, "o_svecs.i32", svecs, lanes * W);
