@@ -78,7 +78,18 @@ Phases (each prints a line; any failure exits non-zero):
    120), beyond what the device engine can hold, through the DDD engine
    in frontier retention with ``--stats`` and ``--deadline``: every level
    it completes must end at the cumulative count of the JAX package's
-   campaign (``runs/elect5ddd.stats``), level 20 at least.
+   campaign (``runs/elect5ddd.stats``), level 20 at least;
+13. liveness through the CLI (``--property EventuallyLeader``): 13a, the
+   3-server election (t2 l0 m1) through the device engine's graph export
+   (K2 over the store, K1 re-expansion), 142,538 states and 238,302 edges,
+   holding under WF(Next) and refuted under ``--wf none`` (exit 13, the
+   stutter at Init); 13b, the 4-server election under SYMMETRY Server
+   (|G| = 24) through ``--engine ddd`` and the DDD graph export, 5,607,847
+   orbits and 9,916,035 edges with the verdicts and SCC counts of
+   ``runs/liveness_4s.out`` under WF(Next), no fairness and WF(Timeout);
+   K2 and K1 against their plain versions on rows of the two universes.
+   ``tools/liveness_run.py`` runs all six verdicts of that file and the
+   raw graph of ``runs/liveness_2m.out``.
 
 The line before the last is ``{"kernels": [...]}``; the last line is
 ``{"ok": true, "device": {...}}``.  Tolerance everywhere: bit-exact (all
@@ -178,6 +189,34 @@ ELECT5_LEVEL_ENDS = {
 ELECT5_DEADLINE = 30.0          # seconds after the first harvest
 STOP_DEADLINE = 1.0             # phase 11's stop, long before the end
 ELECT5_MIN_LEVEL = 20
+
+
+# Phase 13: liveness.  13a, the 3-server election (t2 l0 m1) through the
+# device engine's graph export: 142,538 states (tests/test_liveness.py:
+# 198-213); its 238,302 edges and the 97,124 SCCs checked under WF(Next)
+# come from the JAX package on the CPU, in 27 s:
+#   JAX_PLATFORMS=cpu python -c "from raft_tla_tpu.config import Bounds,
+#   CheckConfig; from raft_tla_tpu.device_engine import Capacities; from
+#   raft_tla_tpu.models import liveness as L; c = CheckConfig(bounds=Bounds(
+#   n_servers=3, n_values=1, max_term=2, max_log=0, max_msgs=1), spec=
+#   'election', invariants=()); g = L.engine_graph(c, Capacities(n_states=
+#   1 << 18, levels=64)); r = L.check(c, 'EventuallyLeader', graph=g);
+#   print(g[1].n_edges, r.holds, r.n_sccs_checked)"
+# (under no fairness: refuted, 1 SCC checked, the stutter at Init).  13b,
+# the 4-server election under SYMMETRY Server (|G| = 24) through the DDD
+# graph export at the reference's largest whole liveness check, against the
+# orbits, edges and verdicts of runs/liveness_4s.out.
+LIVE3_ARGS = ["--spec", "election", "--max-term", "2", "--max-log", "0",
+              "--max-msgs", "1", "--chunk", str(MAIN_CHUNK), "--cap",
+              str(1 << 18), "--levels", "64"]
+LIVE3_EXPECT = (142_538, 238_302, 97_124)
+LIVE4_ARGS = ["--spec", "election", "--max-term", "2", "--max-log", "0",
+              "--max-msgs", "1", "--symmetry", "--engine", "ddd", "--chunk",
+              str(MAIN_CHUNK), "--cap", "8000000", "--levels", "128"]
+LIVE4_OUT = ROOT / "runs" / "liveness_4s.out"
+# 13b's verdicts through the CLI (--wf values); tools/liveness_run.py runs
+# all six of runs/liveness_4s.out
+LIVE4_WF = ("Next", "none", "Timeout")
 
 
 def fail(msg: str) -> None:
@@ -1311,6 +1350,160 @@ def phase12(results):
     results["launches_phase12"] = launches
 
 
+def liveness_run(argv, label: str, wf: str) -> tuple:
+    """One ``--property EventuallyLeader --wf WF`` run of the CLI: ``(code,
+    eng, res, verdict, walls, launches)``; ``walls`` the search's, the
+    graph build's (the rest of the run) and the verdict's seconds."""
+    code, eng, res, out, wall, launches = drive(
+        [*argv, "--property", "EventuallyLeader", "--wf", wf], label)
+    if len(res.liveness) != 1:
+        fail(f"{label}: exit {code}, no liveness verdict: {out[-600:]}")
+    import re
+    search = float(re.search(r"transitions, ([0-9.]+)s \(", out).group(1))
+    verdict = float(re.search(r"^Property .*, ([0-9.]+)s\.$", out,
+                              re.M).group(1))
+    walls = (search, wall - search - verdict, verdict)
+    return code, eng, res, res.liveness[0], walls, launches
+
+
+def expect_lasso_at_init(v, bounds) -> bool:
+    """A lasso that stutters at Init: prefix Init alone, cycle its stutter."""
+    from raft_tla_tpu_torch.models import interp
+    init = interp.init_state(bounds)
+    return v is not None and v.prefix == [(None, init)] \
+        and v.cycle == [("<stutter>", init)]
+
+
+def export_kernels(label, config, rows, step_args, k2: bool) -> None:
+    """K1 on chunks of stored rows, as the graph exports launch it, and
+    with ``k2`` K2 over all of them, against their plain versions
+    (bit-exact)."""
+    from raft_tla_tpu_torch.ops import fingerprint as fpr, kernels
+    from raft_tla_tpu_torch.ops import pallas_fp, pallas_step
+    k2_bad = 0
+    if k2:
+        hi, lo = pallas_fp.fingerprint_rows(rows)
+        rh, rl = fpr.fingerprint(rows, fpr.torch_constants(rows.shape[1],
+                                                           rows.device))
+        k2_bad = int(((hi != rh) | (lo != rl)).sum())
+    b, spec = config.bounds, config.spec
+    step = pallas_step.build_step(b, spec, (), rows.device, **step_args)
+    plain = kernels.build_step(b, spec, (), step_args.get("symmetry", ()),
+                               step_args.get("view"))
+    n = rows.shape[0]
+    starts = sorted({0, (n // MAIN_CHUNK // 2) * MAIN_CHUNK,
+                     (n - 1) // MAIN_CHUNK * MAIN_CHUNK})
+    k1_bad = valid = 0
+    for c0 in starts:
+        chunk = rows[c0:c0 + MAIN_CHUNK]
+        out, ref = step(chunk), plain(chunk)
+        torch.cuda.synchronize()
+        bad, _ = compare_step(out, ref)
+        k1_bad += bad
+        valid += int(ref["valid"].sum())
+    say(f"{label}: " + (f"K2 over {n} stored rows against the plain "
+                        f"fingerprint: mismatches {k2_bad}; " if k2 else "")
+        + f"K1 re-expansion chunks at rows {starts} of {n} ({valid} valid "
+        f"lanes) against the plain step: mismatches {k1_bad}")
+    if k1_bad or k2_bad:
+        fail(f"{label}: a graph-export kernel disagrees with its plain "
+             "version")
+
+
+def phase13(results):
+    """Liveness: 13a through the device engine's graph export (K2 over the
+    store, K1 re-expansion), 13b through the DDD engine's under SYMMETRY."""
+    from raft_tla_tpu_torch.config import Bounds, CheckConfig
+    from raft_tla_tpu_torch.device_engine import Capacities, DeviceEngine
+    cfg = write_cfg("live3", 3, 1, "NoTwoLeaders")
+    rows13 = {}
+    for wf in ("Next", "none"):
+        code, eng, res, v, walls, launches = liveness_run(
+            [cfg, *LIVE3_ARGS], f"13a --wf {wf}", wf)
+        chunks = eng.stats["chunks"]
+        reexp = -(-v.n_states // MAIN_CHUNK)
+        got = (v.n_states, v.n_edges, v.n_sccs_checked)
+        say(f"phase 13a: 3-server election t2 l0 m1, EventuallyLeader under "
+            f"--wf {wf}: exit {code}, holds {v.holds}, states/edges/SCCs "
+            f"checked {got}; walls: search {walls[0]:.2f} s, graph build "
+            f"{walls[1]:.2f} s, verdict {walls[2]:.2f} s; K1 launches "
+            f"{launches['step']} (2 x {chunks} search chunks + {reexp} "
+            f"re-expansion), K2 launches {launches['fingerprint']}, plain "
+            f"step calls {launches['plain step']}")
+        want_ok = got == LIVE3_EXPECT and v.holds and code == 0 \
+            if wf == "Next" else (v.n_states, v.n_edges) == \
+            LIVE3_EXPECT[:2] and not v.holds and code == 13 \
+            and v.n_sccs_checked == 1 \
+            and expect_lasso_at_init(v.violation, eng.config.bounds)
+        if not want_ok or res.n_states != LIVE3_EXPECT[0]:
+            fail(f"13a --wf {wf}: {code}, {v.holds}, {got}")
+        if launches["step"] != 2 * chunks + reexp \
+                or launches["fingerprint"] != 3 or launches["plain step"]:
+            fail(f"13a: the export did not run through K1 and K2: "
+                 f"{launches}")
+        results[f"launches_phase13a_{wf}"] = launches
+        rows13[wf] = walls
+    results["launches_phase13a"] = results["launches_phase13a_Next"]
+    results["live13a"] = rows13
+    b = Bounds(n_servers=3, n_values=1, max_term=2, max_log=0, max_msgs=1)
+    config = CheckConfig(bounds=b, spec="election", invariants=(),
+                         chunk=MAIN_CHUNK)
+    eng = DeviceEngine(config, Capacities(n_states=1 << 18, levels=64))
+    res = eng.check(retain_carry=True)
+    export_kernels("phase 13a", config,
+                   eng.retained_carry["store"][:res.n_states].clone(), {},
+                   k2=True)
+    del eng
+
+    want = {(d["prop"], tuple(d["wf"])): d
+            for d in map(json.loads, LIVE4_OUT.read_text().splitlines())
+            if "prop" in d}
+    graph = json.loads(LIVE4_OUT.read_text().splitlines()[0])
+    cfg = write_cfg("live4", 4, 1, "NoTwoLeaders")
+    rows13 = {}
+    for wf in LIVE4_WF:
+        code, eng, res, v, walls, launches = liveness_run(
+            [cfg, *LIVE4_ARGS], f"13b --wf {wf}", wf)
+        w = want["EventuallyLeader", () if wf == "none" else (wf,)]
+        chunks = eng.stats["chunks"]
+        reexp = -(-v.n_states // MAIN_CHUNK)
+        got = (v.n_states, v.n_edges, v.holds, v.n_sccs_checked)
+        say(f"phase 13b: 4-server election t2 l0 m1, SYMMETRY Server, "
+            f"--engine ddd, EventuallyLeader under --wf {wf}: exit {code}; "
+            f"orbits/edges/holds/SCCs checked {got} (runs/liveness_4s.out: "
+            f"{(w['n_states'], w['n_edges'], w['holds'], w['n_sccs_checked'])}"
+            f"); walls: search {walls[0]:.2f} s, graph build {walls[1]:.2f} "
+            f"s, verdict {walls[2]:.2f} s (JAX on the CPU: graph "
+            f"{graph['wall_s']} s, verdict {w['wall_s']} s); K1 launches "
+            f"{launches['step']} (search chunks {chunks} a run, "
+            f"re-expansion {reexp}), K2 launches "
+            f"{launches['fingerprint']}, plain step calls "
+            f"{launches['plain step']}, plain orbit-key calls "
+            f"{launches['plain orbit key']}; peak device memory "
+            f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB, peak host "
+            f"RSS so far {host_rss_gib():.2f} GiB")
+        if got != (w["n_states"], w["n_edges"], w["holds"],
+                   w["n_sccs_checked"]) or res.n_states != w["n_states"] \
+                or code != (0 if w["holds"] else 13):
+            fail(f"13b --wf {wf}: counts or verdict differ from "
+                 f"{LIVE4_OUT.name}")
+        if launches["step"] != 2 * chunks + reexp \
+                or launches["plain step"] or launches["plain orbit key"]:
+            fail(f"13b: the export did not run through K1 alone: "
+                 f"{launches}")
+        results[f"launches_phase13b_{wf}"] = launches
+        rows13[wf] = walls
+    results["launches_phase13b"] = results["launches_phase13b_Next"]
+    results["live13b"] = rows13
+    # K1 under the run's SYMMETRY on rows of the universe (the first 160
+    # chunks of its orbits, evenly spaced), against the plain orbit key
+    b4 = Bounds(n_servers=4, n_values=1, max_term=2, max_log=0, max_msgs=1)
+    config = CheckConfig(bounds=b4, spec="election", invariants=(),
+                         symmetry=("Server",), chunk=1024)
+    export_kernels("phase 13b", config,
+                   reachable_rows(config, 3 * MAIN_CHUNK),
+                   {"symmetry": ("Server",)}, k2=False)
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device visible to torch", file=sys.stderr)
@@ -1320,7 +1513,7 @@ def main() -> int:
               file=sys.stderr)
         return 2
     phases = [phase1, phase2, phase3, phase4, phase5, phase6, phase7,
-              phase8, phase9, phase10, phase11, phase12]
+              phase8, phase9, phase10, phase11, phase12, phase13]
     t_all = time.monotonic()
     card = phase0()
     results = {}
@@ -1353,7 +1546,7 @@ def main() -> int:
                     results[f"launches_{path}"][name]
                 for path in ("phase3_host", "phase4", "phase5",
                              "phase6_sym", "phase6", "phase7", "phase9",
-                             "phase10", "phase12")},
+                             "phase10", "phase12", "phase13a", "phase13b")},
             "audit_launches": {
                 "phase10": results["audit_launches_phase10"][name]},
             "mismatches": r["mismatches"],

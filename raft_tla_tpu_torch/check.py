@@ -5,8 +5,20 @@ A stock TLC model config in (the universe ``Server``/``Value`` and the
 ``INVARIANT`` stanza); the state constraint from the ``--max-*`` flags; the
 engine runs the search on the card (``--device cuda``, the default) or on
 the CPU (``--device cpu``).  The result lines and exit codes are the
-reference's: 0 no error, 11 deadlock, 12 invariant violation, 14 stopped
-before completion (``--deadline`` or SIGINT), 1 error.
+reference's: 0 no error, 11 deadlock, 12 invariant violation, 13 liveness
+violation, 14 stopped before completion (``--deadline`` or SIGINT), 1
+error.
+
+Before any build the width pass (analysis/widthcheck) proves that no
+transition can overflow a packed field for these bounds: ``--lint warn``
+(the default) prints its findings on stderr and runs on, ``--lint strict``
+makes any finding fatal, ``--no-lint`` skips it.
+
+``--property NAME_OR_FORMULA`` (and the cfg's PROPERTY stanza) checks a
+temporal property under the weak fairness of ``--wf`` after an exhaustive
+search without error (models/liveness.py): ``host`` and ``ref`` without a
+VIEW build the graph with the interpreter; SYMMETRY, a VIEW or ``--engine
+ddd`` build it from the DDD engine's store; otherwise the device engine's.
 
 Four engines: ``--engine device`` (the default: the whole search in the
 card's memory), ``--engine ddd`` (exact dedup on the host, the card expands
@@ -22,9 +34,9 @@ This port supports them in parity and faithful mode (``--faithful``: the
 history variables carried as state, with the ``*Hist`` invariants), with
 SYMMETRY on the Server and Value axes (``--symmetry`` or the cfg stanza),
 the registered VIEWs (``--view``), registry invariants and whole-line
-predicate expressions in the INVARIANT stanza.  The reference's other
-flags and stanzas are refused with the ROADMAP.md item that will bring
-them.
+predicate expressions in the INVARIANT stanza, and the PROPERTY stanza.
+The reference's other flags and stanzas are refused with the ROADMAP.md
+item that will bring them.
 """
 
 from __future__ import annotations
@@ -36,12 +48,12 @@ import time
 EXIT_OK = 0
 EXIT_DEADLOCK = 11       # TLC's exit code for deadlock
 EXIT_VIOLATION = 12      # TLC's exit code for safety-property violations
+EXIT_LIVENESS = 13       # TLC's exit code for liveness-property violations
 EXIT_STOPPED = 14        # a lossless stop short of exhaustion
 EXIT_ERROR = 1
 
 # Reference flags that this slice refuses, with the ROADMAP.md queue item.
 _NOT_PORTED = {
-    "--property": "item 5, liveness",
     "--simulate": "item 8, simulation and fleets",
     "--route": "item 7, gated variants",
     "--device-dedup": "item 7, gated variants",
@@ -152,6 +164,27 @@ def build_argparser() -> argparse.ArgumentParser:
     p.add_argument("--emit-tlc", metavar="DIR",
                    help="also write MCraft.tla/MCraft.cfg for a stock-TLC "
                         "parity run, then continue")
+    p.add_argument("--property", action="append", default=[],
+                   metavar="NAME_OR_FORMULA",
+                   help="temporal property to check under weak fairness: "
+                        "a registered name (models/liveness.PROPERTIES) "
+                        "or a formula '<>P', '[]<>P', 'P ~> Q' over "
+                        "registered predicates (models/liveness."
+                        "PREDICATES). Also read from the cfg's PROPERTY "
+                        "stanza")
+    p.add_argument("--wf", default="Next",
+                   help="comma-separated action families assumed weakly "
+                        "fair for --property (default: Next = the whole "
+                        "relation; 'none' = no fairness, the reference "
+                        "spec's actual Spec, raft.tla:469)")
+    p.add_argument("--lint", default="warn", choices=("warn", "strict"),
+                   help="static width-safety pass (analysis/widthcheck) "
+                        "before any step build: prove no transition can "
+                        "overflow a packed field for these bounds. 'warn' "
+                        "(default) prints findings and proceeds; 'strict' "
+                        "makes any finding fatal")
+    p.add_argument("--no-lint", action="store_true",
+                   help="skip the static width-safety pass")
     for flag in _NOT_PORTED:
         p.add_argument(flag, nargs="?", const=True, default=None,
                        help=argparse.SUPPRESS)
@@ -168,11 +201,11 @@ def resolve_check_config(cfg, spec: str = "full", max_term: int = 3,
     ``serve/jobs.resolve_check_config``.  ``symmetry`` is the
     ``--symmetry`` flag (Server), ``view`` the ``--view`` flag,
     ``faithful``/``max_elections`` the ``--faithful``/``--max-elections``
-    flags.  Raises ValueError on a bad cfg and NotImplementedError on a
-    stanza that is not ported."""
-    from raft_tla_tpu_torch.config import (
-        Bounds, CheckConfig, not_ported)
+    flags.  Raises ValueError on a bad cfg (a PROPERTY that does not parse
+    included)."""
+    from raft_tla_tpu_torch.config import Bounds, CheckConfig
     from raft_tla_tpu_torch.models import invariants as inv_mod
+    from raft_tla_tpu_torch.models import liveness
     from raft_tla_tpu_torch.utils import cfgparse
 
     if cfg.specification not in (None, "Spec"):
@@ -198,8 +231,8 @@ def resolve_check_config(cfg, spec: str = "full", max_term: int = 3,
             where = f"{path or 'cfg'} line {lineno}: " if lineno else ""
             raise ValueError(
                 f"{where}invariant expression {nm!r} does not parse: {e}")
-    if cfg.properties:
-        raise not_ported(f"PROPERTY {cfg.properties}", "item 5, liveness")
+    for nm in cfg.properties:
+        liveness.parse_property(nm)     # raises with both registries
     sym_names = set(cfg.symmetry) | ({"Server"} if symmetry else set())
     bad_sym = sym_names - {"Server", "SymServer", "Value", "SymValue",
                            "SymServerValue"}
@@ -250,13 +283,25 @@ def main(argv=None) -> int:
     return run(argv)[0]
 
 
-def config_of(args) -> CheckConfig:
-    """The ``CheckConfig`` of parsed CLI arguments (the cfg file read)."""
+def properties_of(cfg, extra=()) -> tuple:
+    """The properties to check: the cfg's PROPERTY stanza, then the
+    ``--property`` entries it does not name; each must parse."""
+    from raft_tla_tpu_torch.models import liveness
+    props = list(cfg.properties) + [nm for nm in extra
+                                    if nm not in cfg.properties]
+    for nm in props:
+        liveness.parse_property(nm)     # raises with both registries
+    return tuple(props)
+
+
+def config_of(args, cfg=None) -> CheckConfig:
+    """The ``CheckConfig`` of parsed CLI arguments (the cfg file read,
+    unless it is given)."""
     from raft_tla_tpu_torch.utils.cfgparse import load_cfg
     return resolve_check_config(
-        load_cfg(args.cfg), spec=args.spec, max_term=args.max_term,
-        max_log=args.max_log, max_msgs=args.max_msgs, max_dup=args.max_dup,
-        chunk=args.chunk, deadlock=args.deadlock, symmetry=args.symmetry,
+        cfg if cfg is not None else load_cfg(args.cfg), spec=args.spec,
+        max_term=args.max_term, max_log=args.max_log,
+        max_msgs=args.max_msgs, max_dup=args.max_dup, chunk=args.chunk, deadlock=args.deadlock, symmetry=args.symmetry,
         view=args.view, path=args.cfg, faithful=args.faithful,
         max_elections=args.max_elections)
 
@@ -295,10 +340,15 @@ def run(argv=None) -> tuple:
             # utils/prefetch), as in the reference
             os.environ[env] = getattr(args, flag)
     from raft_tla_tpu_torch import __version__
+    from raft_tla_tpu_torch.utils.cfgparse import load_cfg
     try:
-        config = config_of(args)
+        cfg = load_cfg(args.cfg)
+        config = config_of(args, cfg)
+        props = properties_of(cfg, args.property)
     except (OSError, ValueError, NotImplementedError) as e:
         print(f"Error: {e}", file=sys.stderr)
+        return EXIT_ERROR, None, None
+    if not args.no_lint and lint(config, args.lint) != EXIT_OK:
         return EXIT_ERROR, None, None
 
     b = config.bounds
@@ -326,7 +376,9 @@ def run(argv=None) -> tuple:
                                           parity_view=not b.history,
                                           symmetry=config.symmetry,
                                           view=config.view,
-                                          spec=config.spec)
+                                          spec=config.spec,
+                                          properties=props,
+                                          wf=parse_wf(args.wf))
         except (OSError, ValueError) as e:
             print(f"Error: {e}", file=sys.stderr)
             return EXIT_ERROR, None, None
@@ -363,9 +415,15 @@ def run(argv=None) -> tuple:
         for fam, cnt in sorted(result.coverage.items()):
             print(f"  {fam}: {cnt} new states")
     if result.violation is None and not result.complete:
+        # A lossless stop: no verdict was reached, so neither "no error
+        # found" nor liveness (which needs the whole graph) may be claimed.
         print("Model checking stopped before completion (state space "
               "not exhausted); resume from the checkpoint to continue.")
         return EXIT_STOPPED, eng, result
+    if result.violation is None and props:
+        code = check_liveness(args, config, props, result.liveness)
+        if code != EXIT_OK:
+            return code, eng, result
     code = verdict_code(result)
     if code == EXIT_OK:
         print("Model checking completed. No error has been found.")
@@ -376,6 +434,126 @@ def run(argv=None) -> tuple:
         from raft_tla_tpu_torch.utils.render import render_trace
         print(render_trace(result.violation, b))
     return code, eng, result
+
+
+def lint(config, mode: str = "warn") -> int:
+    """The width pass before any step build (the reference's ``--lint``):
+    findings go to stderr under ``speclint (width pass):``; a crash of the
+    analyzer is itself a finding; ``strict`` turns any finding into exit
+    1."""
+    from raft_tla_tpu_torch.analysis import report, widthcheck
+    try:
+        found = widthcheck.check_widths(config.bounds, config.spec)
+    except Exception as e:      # analyzer bug: report, don't block
+        found = [report.Finding(
+            report.WIDTH, report.ERROR, "lint-internal-error",
+            f"width pass crashed: {e!r}")]
+    if found:
+        print(report.render(found, header="speclint (width pass):"),
+              file=sys.stderr)
+        if mode == "strict":
+            return EXIT_ERROR
+    return EXIT_OK
+
+
+def parse_wf(text: str) -> tuple:
+    """``--wf`` families; 'none' = no fairness (the raw reference Spec).
+    One definition for the checker and the TLC twin, so the emitted
+    FairSpec always encodes the same fairness as the verdict."""
+    if text.strip().lower() == "none":
+        return ()
+    return tuple(f.strip() for f in text.split(",") if f.strip())
+
+
+def liveness_graph(args, config):
+    """The behavior graph of a liveness check, by the reference's routing:
+    the interpreter for ``host``/``ref`` without a VIEW; the DDD engine's
+    store under SYMMETRY, a VIEW or ``--engine ddd``; else the device
+    engine's."""
+    from raft_tla_tpu_torch.models import liveness
+    if args.engine in ("host", "ref") and not config.view:
+        return liveness.explore_graph(config)
+    if config.view or config.symmetry or args.engine == "ddd":
+        from raft_tla_tpu_torch.ddd_engine import DDDCapacities
+        from raft_tla_tpu_torch.models import spec as S
+        if config.symmetry:
+            print("Symmetry: liveness runs on the orbit-quotient "
+                  "graph (exact for the registered properties — "
+                  "models/liveness.ddd_graph); the lasso, if any, "
+                  "is a quotient witness")
+        A = len(S.action_table(config.bounds, config.spec))
+        return liveness.ddd_graph(config, DDDCapacities(
+            block=args.block or 1 << 20,
+            table=1 << max(10, min(26, (2 * args.cap - 1).bit_length())),
+            seg_rows=max(1 << 19, 2 * args.chunk * A),
+            levels=args.levels), device=args.device)
+    from raft_tla_tpu_torch.device_engine import Capacities
+    return liveness.engine_graph(config, Capacities(
+        n_states=args.cap, levels=args.levels), device=args.device)
+
+
+def check_liveness(args, config, props, out: list) -> int:
+    """Build the graph once and check every property on it (the
+    reference's ``_check_liveness``); each verdict is appended to
+    ``out``."""
+    from raft_tla_tpu_torch.models import liveness
+    try:
+        graph = liveness_graph(args, config)
+    except (ValueError, RuntimeError) as e:
+        print(f"Error: {e}", file=sys.stderr)
+        return EXIT_ERROR
+    try:
+        return report_liveness(args, config, props, parse_wf(args.wf),
+                               graph, out)
+    finally:
+        if isinstance(graph[0], liveness.StatesView):
+            graph[0].close()        # the rows the export kept
+
+
+def report_liveness(args, config, props, wf, graph, out: list) -> int:
+    """The reference's ``_report_liveness``: one verdict line per
+    property, and the lasso of the first violated one (exit 13)."""
+    from raft_tla_tpu_torch.models import liveness
+    from raft_tla_tpu_torch.utils.render import render_state
+
+    for nm in props:
+        t0 = time.monotonic()
+        try:
+            res = liveness.check(config, nm, wf=wf, graph=graph)
+        except ValueError as e:
+            print(f"Error: {e}", file=sys.stderr)
+            return EXIT_ERROR
+        wall = time.monotonic() - t0
+        out.append(res)
+        pspec = liveness.parse_property(nm)
+        shape = f"{pspec.pred_names[0]} ~> {pspec.pred_names[1]}" \
+            if pspec.form == liveness.LEADS_TO \
+            else f"{pspec.form}{pspec.pred_names[0]}"
+        shape_txt = f" ({shape})" if shape != nm else ""
+        wf_txt = ", ".join(wf) if wf else "no fairness (raw Spec)"
+        print(f"Property {nm}{shape_txt} under WF({wf_txt}): "
+              f"{res.n_states} states, {res.n_edges} transitions, "
+              f"{wall:.2f}s.")
+        if res.holds:
+            print(f"Property {nm} is satisfied.")
+            continue
+        print(f"Error: Property {nm} is violated.")
+        if not args.no_trace:
+            print("Error: The following behavior, repeated forever, "
+                  "refutes it:")
+            v = res.violation
+            for k, (label, state) in enumerate(v.prefix, start=1):
+                head = "<Initial predicate>" if label is None \
+                    else f"<{label}>"
+                print(f"State {k}: {head}")
+                print(render_state(state, config.bounds))
+            n0 = len(v.prefix)
+            for k, (label, state) in enumerate(v.cycle, start=n0 + 1):
+                print(f"State {k}: <{label}>  (loop)")
+                print(render_state(state, config.bounds))
+            print(f"(the loop returns to State {n0 + 1})")
+        return EXIT_LIVENESS
+    return EXIT_OK
 
 
 def make_engine(args, config):

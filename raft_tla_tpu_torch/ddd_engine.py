@@ -858,21 +858,25 @@ class DDDEngine:
               on_progress=None, checkpoint: str | None = None,
               checkpoint_every_s: float = 600.0,
               resume: str | None = None,
-              deadline_s: float | None = None) -> EngineResult:
+              deadline_s: float | None = None,
+              retain_store: bool = False) -> EngineResult:
         """Run the search from Init (or ``init_override``, or a ``resume``
         snapshot of either package) to the end, or until ``deadline_s``
         seconds after the first harvest or a SIGINT (then ``complete`` is
         False and ``checkpoint``, if given, holds a snapshot).
         ``on_progress`` receives a stats dict after every host flush and
-        at every level end."""
+        at every level end.  ``retain_store=True`` (full retention only)
+        leaves ``(host, constore, keystore, n_states)`` open on
+        ``self.retained`` for a graph export (models/liveness.ddd_graph);
+        the caller closes them."""
         with contextlib.ExitStack() as stack:
             install_sigint_boundary_stop(self, stack)
             return self._check_impl(init_override, on_progress, checkpoint,
                                     checkpoint_every_s, resume, deadline_s,
-                                    stack)
+                                    retain_store, stack)
 
     def _check_impl(self, init_override, on_progress, checkpoint,
-                    checkpoint_every_s, resume, deadline_s,
+                    checkpoint_every_s, resume, deadline_s, retain_store,
                     _cleanup) -> EngineResult:
         t0 = time.monotonic()
         dev = self.device
@@ -900,6 +904,10 @@ class DDDEngine:
             self.stats.update(step_s=0.0, filter_s=0.0)
         P = self.schema.P
         frontier = self.caps.retention == "frontier"
+        if frontier and retain_store:
+            raise ValueError(
+                "retain_store (liveness graph export) needs retention="
+                "'full' — frontier mode drops pre-frontier rows")
         tmpdir = None
         if frontier:
             checkpoint, checkpoint_every_s, tmpdir = \
@@ -1241,9 +1249,14 @@ class DDDEngine:
         tail = n_states - level_ends[-1]
         if tail > 0:                 # partial final level (stopped run)
             levels_arr.append(tail)
-        host.close()
-        constore.close()
-        keystore.close()
+        if retain_store:
+            # the graph export re-expands the stored rows; the caller owns
+            # closing these
+            self.retained = (host, constore, keystore, n_states)
+        else:
+            host.close()
+            constore.close()
+            keystore.close()
         result = EngineResult(
             n_states=n_states, diameter=len(levels_arr) - 1,
             n_transitions=n_trans,

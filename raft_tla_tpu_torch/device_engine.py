@@ -507,12 +507,18 @@ class DeviceEngine:
               checkpoint_every_s: float = 600.0,
               resume: str | None = None,
               max_chunks: int | None = None,
-              on_progress=None) -> EngineResult:
+              on_progress=None, retain_carry: bool = False) -> EngineResult:
         """Run the search from Init (or ``init_override``, or a ``resume``
         checkpoint) to the end, or for at most ``max_chunks`` chunks
         (then ``complete`` is False and ``checkpoint``, if given, holds the
         carry).  ``on_progress``, if given, receives the reference's
-        progress record (a dict) after every segment."""
+        progress record (a dict) after every segment.
+
+        ``retain_carry=True`` keeps the final carry (``store``, ``conflag``,
+        ...) on ``self.retained_carry`` for a post-hoc pass (the liveness
+        graph export, models/liveness.engine_graph).  Its buffers stay in
+        device memory until the caller drops both ``retained_carry`` and
+        ``carry``, which is the same dict."""
         t0 = time.monotonic()
         bounds = self.bounds
         init_py = init_override if init_override is not None \
@@ -556,6 +562,8 @@ class DeviceEngine:
         levels = [1] + [int(x) for x in c["levels"][:c["lvl"]] if int(x) > 0]
         coverage = aggregate_coverage(self.table, c["cov"][:self.A].cpu())
         violation = self._extract_trace() if c["viol_g"] >= 0 else None
+        if retain_carry:
+            self.retained_carry = c
         return EngineResult(
             n_states=c["n_states"], diameter=len(levels) - 1,
             n_transitions=c["n_trans"], coverage=coverage,

@@ -56,6 +56,9 @@ class EngineResult:
     levels: list           # new-state count per level (levels[0] = 1)
     wall_s: float
     complete: bool = True  # False: stopped before exhaustion (resumable)
+    # the CLI's liveness verdicts (models/liveness.LivenessResult), one per
+    # property checked after the search, in order
+    liveness: list = dataclasses.field(default_factory=list)
 
 
 @dataclasses.dataclass
@@ -70,6 +73,7 @@ class RefResult:
     # The oracle never stops early, so a returned result is always a
     # complete exploration.
     complete: bool = True
+    liveness: list = dataclasses.field(default_factory=list)
 
 
 class _VecStore:

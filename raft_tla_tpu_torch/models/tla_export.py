@@ -4,8 +4,8 @@
 Its output is byte-equal to the reference's for the same bounds and flags:
 the generated module's header keeps naming ``raft_tla_tpu.models.
 tla_export``, so one TLC twin serves both packages.  The reference's
-refusals stay: expression invariants have no TLA+ text here, and PROPERTY
-twins wait for liveness (ROADMAP.md queue A 5).
+refusals stay: expression invariants have no TLA+ text here, and a
+``--wf`` family without an action closure has no fairness twin.
 
 The reference's config is not runnable by stock TLC as-is: ``raft.cfg:3``
 declares ``INVARIANT NoTwoLeaders`` but no such operator exists in
@@ -44,7 +44,7 @@ from __future__ import annotations
 
 import os
 
-from raft_tla_tpu_torch.config import Bounds, not_ported
+from raft_tla_tpu_torch.config import Bounds
 
 MODULE_NAME = "MCraft"
 
@@ -182,23 +182,67 @@ def _spec_parts(spec: str):
         "preset-leader Init the exporter does not emit)")
 
 
-def _no_properties(properties: tuple) -> None:
-    if properties:
-        raise not_ported(f"PROPERTY export {list(properties)}",
-                         "item 5, liveness")
+# Existential closure of each action family (raft.tla signatures) for
+# WF_vars terms in the fair twin spec.
+_FAMILY_ACTION = {
+    "Restart": "\\E i \\in Server : Restart(i)",
+    "Timeout": "\\E i \\in Server : Timeout(i)",
+    "RequestVote": "\\E i, j \\in Server : RequestVote(i, j)",
+    "BecomeLeader": "\\E i \\in Server : BecomeLeader(i)",
+    "ClientRequest":
+        "\\E i \\in Server, v \\in Value : ClientRequest(i, v)",
+    "AdvanceCommitIndex": "\\E i \\in Server : AdvanceCommitIndex(i)",
+    "AppendEntries": "\\E i, j \\in Server : AppendEntries(i, j)",
+    "Receive": "\\E m \\in DOMAIN messages : Receive(m)",
+    "DuplicateMessage":
+        "\\E m \\in DOMAIN messages : DuplicateMessage(m)",
+    "DropMessage": "\\E m \\in DOMAIN messages : DropMessage(m)",
+}
+
+
+def _prop_defs(properties: tuple):
+    """[(definition name, TLA temporal formula)] for PROPERTY entries —
+    registered names keep their name, formulas get synthesized ones."""
+    from raft_tla_tpu_torch.models import liveness
+
+    defs = []
+    for k, text in enumerate(properties, start=1):
+        ps = liveness.parse_property(text)
+        tlas = [liveness.PREDICATES[nm][2] for nm in ps.pred_names]
+        if ps.form == liveness.LEADS_TO:
+            formula = f"({tlas[0]}) ~> ({tlas[1]})"
+        else:
+            formula = f"{ps.form}({tlas[0]})"
+        name = ps.text if ps.text in liveness.PROPERTIES \
+            else f"TemporalProp{k}"
+        defs.append((name, formula))
+    return defs
+
+
+def _fair_spec(spec_name: str, spec: str, wf: tuple) -> str:
+    """``FairSpec == <base> /\\ WF_vars(...)`` matching the checker's
+    ``--wf`` families (the temporal verdicts are fairness-relative)."""
+    next_name = "ElectionNext" if spec == "election" else "Next"
+    unknown = [f for f in wf if f != "Next" and f not in _FAMILY_ACTION]
+    if unknown:
+        raise ValueError(f"no TLA+ export for WF families {unknown}")
+    terms = [f"WF_vars({next_name})" if fam == "Next"
+             else f"WF_vars({_FAMILY_ACTION[fam]})" for fam in wf]
+    conj = " /\\ ".join(terms)
+    return (f"\\* The checker's --wf fairness, as a twin spec.\n"
+            f"FairSpec == {spec_name} /\\ {conj}")
 
 
 def emit_module(bounds: Bounds, invariants: tuple,
                 parity_view: bool = True, symmetry: bool = False,
                 view: str | None = None, spec: str = "full",
-                properties: tuple = ()) -> str:
-    """The ``MCraft.tla`` text: invariants + StateConstraint (+ VIEW).
-    ``properties`` (temporal PROPERTY twins) are not ported."""
-    _no_properties(properties)
+                properties: tuple = (), wf: tuple = ()) -> str:
+    """The ``MCraft.tla`` text: invariants + StateConstraint (+ VIEW +
+    temporal PROPERTY definitions and the fairness twin spec)."""
     unknown = [nm for nm in invariants if nm not in _INVARIANT_TLA]
     if unknown:
         raise ValueError(f"no TLA+ export for invariants: {unknown}")
-    spec_blocks, _ = _spec_parts(spec)
+    spec_blocks, _spec_name = _spec_parts(spec)
     parts = [f"---------------------------- MODULE {MODULE_NAME} "
              "----------------------------",
              "\\* Generated by raft_tla_tpu.models.tla_export — the TLC",
@@ -242,6 +286,13 @@ DeadVotesView ==
         parts += ["\\* TLC symmetry set matching the checker's "
                   "symmetry reduction.",
                   f"{_sym_name(symmetry)} == {union}", ""]
+    if properties:
+        parts += ["\\* Temporal PROPERTY twins (cfg/CLI formulas)."]
+        for name, formula in _prop_defs(properties):
+            parts += [f"{name} == {formula}"]
+        parts += [""]
+        if wf:
+            parts += [_fair_spec(_spec_name, spec, wf), ""]
     parts.append("=" * 77)
     return "\n".join(parts)
 
@@ -249,18 +300,24 @@ DeadVotesView ==
 def emit_cfg(bounds: Bounds, invariants: tuple,
              parity_view: bool = True, symmetry: bool = False,
              view: str | None = None, spec: str = "full",
-             properties: tuple = ()) -> str:
+             properties: tuple = (), wf: tuple = ()) -> str:
     """The ``MCraft.cfg`` text: reference bindings + the new stanzas."""
-    _no_properties(properties)
     servers = ", ".join(f"s{i + 1}" for i in range(bounds.n_servers))
     values = ", ".join(f"v{i + 1}" for i in range(bounds.n_values))
     _blocks, spec_name = _spec_parts(spec)
     lines = [
-        f"SPECIFICATION {spec_name}",
+        f"SPECIFICATION "
+        f"{'FairSpec' if properties and wf else spec_name}",
         "",
+        *[f"PROPERTY {nm}" for nm, _f in _prop_defs(properties)],
         *[f"INVARIANT {nm}" for nm in invariants],
         "CONSTRAINT StateConstraint",
-        *(["VIEW ParityView"] if parity_view
+        # stock TLC rejects VIEW when checking temporal properties
+        # (liveness needs real states, not view fingerprints): a
+        # temporal twin runs on the faithful space, bounded by the
+        # CONSTRAINT — so with properties the VIEW line is omitted
+        *([] if properties
+          else ["VIEW ParityView"] if parity_view
           else ["VIEW DeadVotesView"] if view else []),
         *([f"SYMMETRY {_sym_name(symmetry)}"] if symmetry else []),
         "",
@@ -283,7 +340,7 @@ def emit_cfg(bounds: Bounds, invariants: tuple,
 def export(outdir: str, bounds: Bounds, invariants: tuple,
            parity_view: bool = True, symmetry: bool = False,
            view: str | None = None, spec: str = "full",
-           properties: tuple = ()) -> tuple:
+           properties: tuple = (), wf: tuple = ()) -> tuple:
     """Write ``MCraft.tla``/``MCraft.cfg`` into ``outdir``; return the paths.
 
     Run on a host with a JVM as::
@@ -297,8 +354,8 @@ def export(outdir: str, bounds: Bounds, invariants: tuple,
     cfg = os.path.join(outdir, f"{MODULE_NAME}.cfg")
     with open(tla, "w", encoding="utf-8") as f:
         f.write(emit_module(bounds, invariants, parity_view, symmetry,
-                            view, spec, properties))
+                            view, spec, properties, wf))
     with open(cfg, "w", encoding="utf-8") as f:
         f.write(emit_cfg(bounds, invariants, parity_view, symmetry, view,
-                         spec, properties))
+                         spec, properties, wf))
     return tla, cfg

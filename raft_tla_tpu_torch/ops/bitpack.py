@@ -33,6 +33,10 @@ from raft_tla_tpu_torch.ops.msgbits import _HI_FIELDS, _LO_FIELDS
 
 _M32 = 0xFFFFFFFF
 
+# Fields whose elements are raw 32-bit words (the sign bit is data): the
+# faithful-mode allLogs mask.  Every other field keeps the int32 sign clear.
+RAW_FIELDS = ("allLogs",)
+
 
 def _bits(max_value: int) -> int:
     """Bits to represent values 0..max_value."""

@@ -488,6 +488,46 @@ _FAMILY_KERNELS = {
 }
 
 
+# The struct fields each family's kernel can write (beyond copying the
+# input): the kernel side of the width-safety contract.  The analyzer
+# (analysis/widthcheck) keeps an abstract transfer twin per family and
+# cross-checks the two write sets, so a k_* body growing a new write
+# without its twin being re-proved is a loud lint finding.  History-only
+# fields are listed unconditionally; the analyzer filters by mode.  Keep in
+# sync with the k_* bodies above (the reference's TRANSFER_WRITES).
+TRANSFER_WRITES = {
+    SP.RESTART: ("role", "vResp", "vGrant", "nextIndex", "matchIndex",
+                 "commitIndex", "vLog"),
+    SP.TIMEOUT: ("role", "term", "votedFor", "vResp", "vGrant", "vLog"),
+    SP.REQUESTVOTE: ("msgHi", "msgLo", "msgCount"),
+    SP.BECOMELEADER: ("role", "nextIndex", "matchIndex",
+                      "eTerm", "eLeader", "eLog", "eVotes", "eVLog"),
+    SP.CLIENTREQUEST: ("logTerm", "logVal", "logLen"),
+    SP.ADVANCECOMMIT: ("commitIndex",),
+    SP.APPENDENTRIES: ("msgHi", "msgLo", "msgCount"),
+    SP.RECEIVE: ("term", "role", "votedFor", "vResp", "vGrant", "vLog",
+                 "commitIndex", "logTerm", "logVal", "logLen",
+                 "nextIndex", "matchIndex", "msgHi", "msgLo", "msgCount"),
+    SP.DUPLICATE: ("msgCount",),
+    SP.DROP: ("msgHi", "msgLo", "msgCount"),
+}
+
+# finish_expand's shared postlude writes (outside any single family): the
+# faithful-mode allLogs union, raw 32-bit mask words, or-only.
+POSTLUDE_WRITES = ("allLogs",)
+
+
+def transfer_metadata() -> dict:
+    """Per-family metadata for the width pass: parameter names and declared
+    write sets.  Raises KeyError if the two tables ever drift apart."""
+    out = {}
+    for fam, (_kern, params) in _FAMILY_KERNELS.items():
+        out[fam] = {"params": params, "writes": TRANSFER_WRITES[fam]}
+    for fam in TRANSFER_WRITES:
+        if fam not in _FAMILY_KERNELS:
+            raise KeyError(f"TRANSFER_WRITES names unknown family {fam}")
+    return out
+
 def group_instances(table):
     """Group contiguous instances of the same family (one dispatch each)."""
     groups: list = []

@@ -1,13 +1,15 @@
 """ctypes bindings for the port's C++ host store (``csrc/host_store.cc``) —
 the port of ``raft_tla_tpu/utils/native.py``, cut to what the DDD engine
 uses: :class:`HostStore` (C++), :class:`PyHostStore` (its NumPy twin),
-:class:`FileStore`, :class:`LevelStore` and :func:`make_store`.
+:class:`FileStore`, :class:`LevelStore` and :func:`make_store`; and, for
+the liveness checker, :func:`scc_csr` (C++ Tarjan) with its Python twin
+:func:`scc_csr_py`.
 
 The library is built with ``g++`` at first use into ``build/host_store/``
 at the root of the checkout, named by a hash of the source.  There is no
 fallback: a missing compiler or a failed build raises.  :class:`PyHostStore`
-has the identical interface and is what the tests hold the native store
-against; a caller gets it only by naming it.
+and :func:`scc_csr_py` have the identical interfaces and are what the tests
+hold the native code against; a caller gets them only by naming them.
 """
 
 from __future__ import annotations
@@ -83,6 +85,8 @@ def _lib():
             lib.store_trace_chain.argtypes = [ctypes.c_void_p,
                                               ctypes.c_int64, _i64p,
                                               ctypes.c_int64]
+            lib.scc_tarjan.restype = ctypes.c_int64
+            lib.scc_tarjan.argtypes = [ctypes.c_int64, _i64p, _i64p, _i64p]
             _lib_handle = lib
         return _lib_handle
 
@@ -488,3 +492,68 @@ class LevelStore:
     def close(self) -> None:
         self.cur.close()
         self.nxt.close()
+
+
+def scc_csr(indptr: np.ndarray, dst: np.ndarray) -> tuple:
+    """Strongly connected components of a CSR digraph (C++ iterative
+    Tarjan): ``(comp_id int64[n], n_comps)``, ids in Tarjan completion
+    order (reverse topological), the reference's contract."""
+    indptr = _as_i64(indptr)
+    dst = _as_i64(dst)
+    n = indptr.shape[0] - 1
+    comp = np.empty(n, np.int64)
+    ncomp = _lib().scc_tarjan(n, indptr.ctypes.data_as(_i64p),
+                              dst.ctypes.data_as(_i64p),
+                              comp.ctypes.data_as(_i64p))
+    return comp, int(ncomp)
+
+
+def scc_csr_py(indptr: np.ndarray, dst: np.ndarray) -> tuple:
+    """:func:`scc_csr` in Python (the reference's iterative Tarjan over the
+    CSR arrays): the twin the tests hold the native one to."""
+    indptr = _as_i64(indptr)
+    dst = _as_i64(dst)
+    n = indptr.shape[0] - 1
+    comp = np.empty(n, np.int64)
+    num = np.full(n, -1, np.int64)
+    low = np.empty(n, np.int64)
+    on_stk = np.zeros(n, bool)
+    stk: list = []
+    counter = 0
+    ncomp = 0
+    for root in range(n):
+        if num[root] != -1:
+            continue
+        frames = [(root, int(indptr[root]))]
+        num[root] = low[root] = counter
+        counter += 1
+        stk.append(root)
+        on_stk[root] = True
+        while frames:
+            u, e = frames[-1]
+            if e < indptr[u + 1]:
+                frames[-1] = (u, e + 1)
+                v = int(dst[e])
+                if num[v] == -1:
+                    num[v] = low[v] = counter
+                    counter += 1
+                    stk.append(v)
+                    on_stk[v] = True
+                    frames.append((v, int(indptr[v])))
+                elif on_stk[v] and num[v] < low[u]:
+                    low[u] = num[v]
+            else:
+                frames.pop()
+                if low[u] == num[u]:
+                    while True:
+                        w = stk.pop()
+                        on_stk[w] = False
+                        comp[w] = ncomp
+                        if w == u:
+                            break
+                    ncomp += 1
+                if frames:
+                    p_ = frames[-1][0]
+                    if low[u] < low[p_]:
+                        low[p_] = low[u]
+    return comp, ncomp

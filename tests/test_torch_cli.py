@@ -53,11 +53,13 @@ def _run(main, argv):
 
 def _result_lines(text):
     """Everything from the count line on, with the wall time and rate cut
-    out of the count line."""
+    out of the count line and the wall time out of each liveness verdict's
+    ``Property`` line."""
     lines = text.splitlines()
     k = next(i for i, ln in enumerate(lines) if "distinct states found" in ln)
     lines[k] = re.sub(r", [0-9.]+s \(.*states/s\)\.$", "", lines[k])
-    return lines[k:]
+    return [re.sub(r", [0-9.]+s\.$", ".", ln) if ln.startswith("Property ")
+            else ln for ln in lines[k:]]
 
 
 ELECTION_2S = ["--spec", "election", "--max-term", "2", "--max-log", "0",
@@ -98,7 +100,7 @@ def test_cli_result_lines_match_jax_cli(tmp_path, args, invariant, servers,
 
 def test_cli_refuses_what_is_not_ported(tmp_path):
     cfg = write_cfg(tmp_path / "m.cfg")
-    for flag in ("--property", "--events"):
+    for flag in ("--simulate", "--events"):
         with pytest.raises(SystemExit) as e:
             _run(cli.main, [cfg, flag, "x"])
         assert e.value.code == 2

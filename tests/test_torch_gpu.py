@@ -203,3 +203,38 @@ def test_host_engine_on_the_card_launches_k1(cuda):
     res = Engine(cfg).check()
     assert (res.n_states, res.diameter, res.violation) == (3014, 17, None)
     assert pallas_step.launches > k1 and kernels.calls == plain
+
+
+@pytest.mark.parametrize("axes", [(), ("Server",)], ids=["engine", "ddd"])
+def test_graph_exports_on_the_card_equal_the_cpu_ones(cuda, axes):
+    """The liveness graph exports through K1 and K2 (``engine_graph``
+    without symmetry, ``ddd_graph`` under SYMMETRY) give the CPU export's
+    CSR arrays, enabled matrix and verdicts."""
+    from raft_tla_tpu_torch.ddd_engine import DDDCapacities
+    from raft_tla_tpu_torch.models import liveness
+    cfg = CheckConfig(bounds=Bounds(n_servers=2, n_values=1, max_term=2,
+                                    max_log=0, max_msgs=2),
+                      spec="election", invariants=(), symmetry=axes,
+                      chunk=256)
+    caps = DDDCapacities(block=1 << 12, table=1 << 14, flush=1 << 12,
+                         levels=64)
+    graphs = []
+    for dev in ("cpu", cuda):
+        before = pallas_step.launches
+        g = liveness.ddd_graph(cfg, caps, device=dev) if axes \
+            else liveness.engine_graph(cfg, device=dev)
+        graphs.append((g, pallas_step.launches - before))
+    (cg, c_k1), (gg, g_k1) = graphs
+    assert c_k1 == 0 and g_k1 > 0
+    for a, b in zip((cg[1]._indptr, cg[1]._aidx, cg[1]._vidx, cg[2]._mat,
+                     cg[3]),
+                    (gg[1]._indptr, gg[1]._aidx, gg[1]._vidx, gg[2]._mat,
+                     gg[3])):
+        assert np.array_equal(np.asarray(a), np.asarray(b))
+    for wf in (("Next",), ()):
+        rc = liveness.check(cfg, "EventuallyLeader", wf=wf, graph=cg)
+        rg = liveness.check(cfg, "EventuallyLeader", wf=wf, graph=gg)
+        assert (rc.holds, rc.n_sccs_checked) == (rg.holds, rg.n_sccs_checked)
+    if axes:
+        cg[0].close()
+        gg[0].close()

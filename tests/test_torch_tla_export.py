@@ -3,7 +3,8 @@
 ``raft_tla_tpu_torch.models.tla_export.export`` must write ``MCraft.tla``
 and ``MCraft.cfg`` byte-equal to ``raft_tla_tpu.models.tla_export.export``
 for the same bounds and flags: parity and faithful mode, with and without
-SYMMETRY and VIEW, both spec subsets it exports.  It keeps the reference's
+SYMMETRY and VIEW, both spec subsets it exports, with and without temporal
+PROPERTY twins and the ``--wf`` fairness twin.  It keeps the reference's
 refusals, and the CLI writes the twin and then runs the check, as the
 reference's does.
 """
@@ -32,6 +33,15 @@ FAITHFUL = PARITY[:4] + ("ElectionSafetyHist", "LeaderCompletenessHist",
                          "AllLogsPrefixClosed")
 
 
+# (properties, --wf families): none; registered names and formulas of all
+# three shapes under per-family fairness; WF(Next); no fairness
+TEMPORAL = (((), ()),
+            (("EventuallyLeader", "[]<>SomeLeader",
+              "SomeCandidate ~> SomeLeader"), ("Timeout", "Receive")),
+            (("EventuallyCommit",), ("Next",)),
+            (("<>SomeCommit",), ()))
+
+
 def _both(tmp_path, tag, kw, invs, **flags):
     """The two packages' files for one configuration, as bytes."""
     out = []
@@ -52,11 +62,12 @@ def test_export_is_byte_equal_to_the_reference(tmp_path, faithful):
     invs = FAITHFUL if faithful else PARITY
     grid = itertools.product(
         ((), ("Server",), ("Value",), ("Server", "Value"), True),
-        (None, "deadvotes"), ("full", "election"))
-    for k, (sym, view, spec) in enumerate(grid):
+        (None, "deadvotes"), ("full", "election"), TEMPORAL)
+    for k, (sym, view, spec, (props, wf)) in enumerate(grid):
         got, want = _both(tmp_path, k, kw, invs, parity_view=not faithful,
-                          symmetry=sym, view=view, spec=spec)
-        assert got == want, (sym, view, spec)
+                          symmetry=sym, view=view, spec=spec,
+                          properties=props, wf=wf)
+        assert got == want, (sym, view, spec, props, wf)
     # The emitted cfg round-trips through the reference's parser.
     text = got[1].decode()
     parsed = jcfgparse.parse_cfg(text)
@@ -68,7 +79,10 @@ def test_export_keeps_the_reference_refusals(tmp_path):
     for bad in (dict(invariants=("commitIndex <= logLen",)),
                 dict(invariants=("NoTwoLeaders",), view="myview"),
                 dict(invariants=("NoTwoLeaders",), spec="replication"),
-                dict(invariants=("NoTwoLeaders",), symmetry=("Term",))):
+                dict(invariants=("NoTwoLeaders",), symmetry=("Term",)),
+                dict(invariants=("NoTwoLeaders",),
+                     properties=("EventuallyLeader",), wf=("Bogus",)),
+                dict(invariants=("NoTwoLeaders",), properties=("<>Nope",))):
         args = dict(bad)
         invs = args.pop("invariants")
         with pytest.raises(ValueError) as want:
@@ -76,9 +90,6 @@ def test_export_keeps_the_reference_refusals(tmp_path):
         with pytest.raises(ValueError) as got:
             tla_export.emit_module(b, invs, **args)
         assert str(got.value) == str(want.value)
-    with pytest.raises(NotImplementedError, match="liveness"):
-        tla_export.export(str(tmp_path), b, ("NoTwoLeaders",),
-                          properties=("EventuallyLeader",))
 
 
 def _run(main, argv):
@@ -97,7 +108,10 @@ def test_cli_emits_the_twin_then_checks(tmp_path):
     cases = [("NoTwoLeaders", "", []),
              ("NoTwoLeaders ElectionSafetyHist", "SYMMETRY Server\n",
               ["--faithful", "--max-elections", "4", "--view", "deadvotes"]),
-             ("count(role = 2) <= 1", "", [])]
+             ("count(role = 2) <= 1", "", []),
+             ("NoTwoLeaders", "PROPERTY EventuallyLeader\n",
+              ["--property", "SomeCandidate ~> SomeLeader", "--wf",
+               "Timeout,Receive"])]
     for k, (inv, extra, flags) in enumerate(cases):
         cfg = write_cfg(tmp_path / f"m{k}.cfg", invariant=inv, extra=extra)
         outs = []
