@@ -89,7 +89,21 @@ Phases (each prints a line; any failure exits non-zero):
    ``runs/liveness_4s.out`` under WF(Next), no fairness and WF(Timeout);
    K2 and K1 against their plain versions on rows of the two universes.
    ``tools/liveness_run.py`` runs all six verdicts of that file and the
-   raw graph of ``runs/liveness_2m.out``.
+   raw graph of ``runs/liveness_2m.out``;
+14. run events on phase 10's universe (frontier retention): 14a, one DDD
+   run with the run-event log, the phase timers and trace spans (``--events
+   --phase-timers --trace``, the host dedup pass at 2^18 candidates so the
+   background flush thread takes batches), just after the same engine run
+   without them (the timers' cost): phase 10's counts, every line valid,
+   one ``run_end``, the last record of each level at phase 10's cumulative
+   count and each ``level_end`` at the first record of the next level,
+   each phase's total within the wall, the trace report attributing the
+   main thread and ``raft-tla-flush``, and a Chrome trace export; 14b, the
+   same universe as a supervised campaign under chaos (a snapshot at every
+   window boundary, two SIGKILLs, a truncated snapshot quarantined and the
+   previous generation restored), ending at phase 10's counts, with the K1
+   launches each child reports.  ``tools/campaign_run.py`` runs elect5 as a
+   campaign.
 
 The line before the last is ``{"kernels": [...]}``; the last line is
 ``{"ok": true, "device": {...}}``.  Tolerance everywhere: bit-exact (all
@@ -101,7 +115,9 @@ from __future__ import annotations
 import contextlib
 import io
 import json
+import os
 import resource
+import shutil
 import subprocess
 import sys
 import threading
@@ -217,6 +233,11 @@ LIVE4_OUT = ROOT / "runs" / "liveness_4s.out"
 # 13b's verdicts through the CLI (--wf values); tools/liveness_run.py runs
 # all six of runs/liveness_4s.out
 LIVE4_WF = ("Next", "none", "Timeout")
+
+# Phase 14: the host dedup pass's size (the CLI's default is 2^23
+# candidates, and 2^20 is still more than any level of phase 10's universe
+# streams, so the background flush thread would never take a batch).
+P14_FLUSH = 1 << 18
 
 
 def fail(msg: str) -> None:
@@ -1239,6 +1260,7 @@ def phase10(results):
     if code != 0 or got != REAL_EXPECT:
         fail("DDD frontier counts differ from the reference")
     results["launches_phase10"] = launches
+    results["levels_phase10"] = res.levels
     # the audit runs after the path: its K2 launches are its own key
     results["audit_launches_phase10"] = {
         "step": 0, "fingerprint": audit_level_files(
@@ -1504,6 +1526,211 @@ def phase13(results):
                    reachable_rows(config, 3 * MAIN_CHUNK),
                    {"symmetry": ("Server",)}, k2=False)
 
+def p14_run(args, config, timed: bool) -> tuple:
+    """Phase 14's engine run: phase 10's universe with the host dedup pass
+    at ``P14_FLUSH``; ``timed`` adds the run-event log, the phase timers
+    and the trace spans.  ``(eng, res, wall, launches)``."""
+    import dataclasses
+    from raft_tla_tpu_torch import check
+    from raft_tla_tpu_torch.ddd_engine import DDDEngine
+    from raft_tla_tpu_torch.ops import kernels, pallas_fp, pallas_step
+    # the gates --phase-timers and --trace set, for the timed run only
+    gates = {"RAFT_TLA_PHASE_TIMERS": "1", "RAFT_TLA_TRACE": "1"} \
+        if timed else {}
+    os.environ.update(gates)
+    try:
+        eng = DDDEngine(config, dataclasses.replace(
+            check.make_engine(args, config).caps, flush=P14_FLUSH),
+            device=args.device)
+        clear_snapshot(Path(args.checkpoint))
+        pallas_step.launches = pallas_fp.launches = kernels.calls = 0
+        torch.cuda.synchronize()
+        t0 = time.monotonic()
+        res = eng.check(checkpoint=args.checkpoint,
+                        events=args.events if timed else None)
+        torch.cuda.synchronize()
+        wall = time.monotonic() - t0
+    finally:
+        for k in gates:
+            os.environ.pop(k, None)
+    launches = {"step": pallas_step.launches,
+                "fingerprint": pallas_fp.launches,
+                "plain step": kernels.calls}
+    if launches["step"] != eng.stats["chunks"] or launches["plain step"]:
+        fail(f"phase 14a: K1 did not run every chunk alone: {launches}")
+    return eng, res, wall, launches
+
+
+def phase14(results):
+    """14a, phase 10's universe with the run-event log, phase timers and
+    spans, beside the same run without them; 14b, that universe as a
+    supervised campaign under chaos."""
+    phase14a(results)
+    phase14b(results)
+
+
+def phase14a(results):
+    from raft_tla_tpu_torch import check
+    from raft_tla_tpu_torch.obs import collect
+    from raft_tla_tpu_torch.obs.events import validate_event
+    from raft_tla_tpu_torch.obs.tracecli import main as tracecli
+    work = WORK / "p14"
+    shutil.rmtree(work, ignore_errors=True)
+    work.mkdir(parents=True)
+    log = work / "run.events"
+    args = check.build_argparser().parse_args(real_argv(
+        "--retention", "frontier", "--checkpoint", str(work / "s"),
+        "--events", str(log), "--phase-timers", "--trace"))
+    config = check.config_of(args)
+    # the timers' cost: the same engine run without them first, then with
+    _e, res_off, wall_off, _l = p14_run(args, config, timed=False)
+    got_off = (res_off.n_states, res_off.diameter, res_off.n_transitions)
+    del _e
+    eng, res, wall, launches = p14_run(args, config, timed=True)
+    got = (res.n_states, res.diameter, res.n_transitions)
+    evs = [json.loads(ln) for ln in log.read_text().splitlines()]
+    bad = [(e["event"], err) for e in evs for err in validate_event(e)]
+    kinds = [e["event"] for e in evs]
+    segs = [e for e in evs if e["event"] == "segment"]
+    cum = np.cumsum(results["levels_phase10"]).tolist()
+    last = {}
+    for e in segs:
+        last[e["level"]] = e["n_states"]
+    off_level = [lv for lv, n in last.items() if n != cum[min(lv, len(cum)
+                                                              - 1)]]
+    first = {}
+    for e in segs:
+        first.setdefault(e["level"], e["n_states"])
+    ends = [e for e in evs if e["event"] == "level_end"]
+    off_end = [e["level"] for e in ends
+               if e["n_states"] != first.get(e["level"] + 1)]
+    exact_ends = sum(e["n_states"] == cum[e["level"] + 1] for e in ends
+                     if e["level"] + 1 < len(cum))
+    totals = {}
+    for e in segs:
+        for k, v in e.get("phase_s", {}).items():
+            totals[k] = totals.get(k, 0.0) + v
+    over = {k: v for k, v in totals.items() if v > wall}
+    rep = collect.report(collect.collect([str(log)]))
+    threads = rep["processes"][0]["threads"]
+    attributed = {t: round(v["attributed_frac"], 4)
+                  for t, v in threads.items()}
+    trace_json = work / "trace.json"
+    with contextlib.redirect_stdout(io.StringIO()):
+        rc_export = tracecli(["export", str(log), "-o", str(trace_json)])
+    n_x = sum(e["ph"] == "X" for e in json.loads(
+        trace_json.read_text())["traceEvents"]) if rc_export == 0 else 0
+    say(f"phase 14a: phase 10's run with --events --phase-timers --trace "
+        f"(host dedup pass {P14_FLUSH} candidates): states {got[0]}, "
+        f"diameter {got[1]}, transitions {got[2]} (expected "
+        f"{REAL_EXPECT}); {len(evs)} events ({kinds.count('segment')} "
+        f"segments, {len(ends)} level_end, {kinds.count('span')} spans, "
+        f"{kinds.count('run_end')} run_end), invalid {len(bad)}; last "
+        f"record of each level at phase 10's cumulative count: "
+        f"{not off_level}; level_end at the next level's first record: "
+        f"{not off_end} ({exact_ends} of {len(ends)} also at the level's "
+        f"end); K1 launches {launches['step']}, K2 {launches['fingerprint']}"
+        f", plain step {launches['plain step']}")
+    say(f"phase 14a: wall {wall:.2f} s timed, {wall_off:.2f} s untimed "
+        f"(the same engine run without the three flags, just before it; "
+        f"states, diameter, transitions {got_off}); phase seconds "
+        + ", ".join(f"{k} {v:.3f}" for k, v in sorted(totals.items()))
+        + f"; trace report attributed share by thread {attributed}; "
+        f"tracecli export: exit {rc_export}, {n_x} spans in "
+        f"{trace_json.name}")
+    if got != REAL_EXPECT or got_off != REAL_EXPECT or bad \
+            or kinds.count("run_end") != 1 or off_level or off_end or over \
+            or rc_export or not n_x:
+        fail(f"phase 14a: {bad[:3]} {off_level[:5]} {off_end[:5]} {over}")
+    if not (attributed.get("MainThread", 0) > 0
+            and attributed.get("raft-tla-flush", 0) > 0):
+        fail(f"phase 14a: the trace report does not attribute the main "
+             f"thread and raft-tla-flush: {attributed}")
+    results["launches_phase14a"] = launches
+    shutil.rmtree(work, ignore_errors=True)
+
+
+def phase14b(results):
+    """Phase 10's universe as a supervised campaign under chaos: a snapshot
+    at every window boundary, the first two children SIGKILLed after their
+    second ``checkpoint`` event, and the ``.keys`` stream of the newest
+    snapshot truncated before the third child's verify, which must
+    quarantine it and restore the previous generation."""
+    from raft_tla_tpu_torch.campaign.chaos import (ChaosMonkey,
+                                                   child_launches,
+                                                   final_record)
+    from raft_tla_tpu_torch.campaign.supervisor import (CampaignPolicy,
+                                                        CampaignSpec,
+                                                        Supervisor)
+    work = WORK / "p14b"
+    shutil.rmtree(work, ignore_errors=True)
+    cfg = write_cfg("real", REAL["servers"], REAL["values"],
+                    REAL["invariants"])
+    spec = CampaignSpec(
+        cfg_path=cfg, spec="full", window=1 << 20, chunk=MAIN_CHUNK,
+        levels=128, cap=1 << 25,
+        options={k: REAL[k] for k in ("max_term", "max_log", "max_msgs")},
+        extra_args=("--retention", "frontier"))
+    monkey = ChaosMonkey(kills={0: ("kill", 2), 1: ("kill", 2)},
+                         truncations={2: ".keys"})
+    spawned = {}
+
+    def on_spawn(sup, proc, attempt):
+        spawned[proc.pid] = (attempt, time.time())
+        monkey.spawn_hook(sup, proc, attempt)
+
+    sup = Supervisor(spec, str(work), policy=CampaignPolicy(
+        checkpoint_every_s=0.0, backoff_base_s=0.0, grace_s=10.0,
+        poll_s=0.05), spawn_hook=on_spawn,
+        pre_verify_hook=monkey.pre_verify_hook)
+    t0 = time.monotonic()
+    with contextlib.redirect_stdout(io.StringIO()) as said:
+        res = sup.run()
+    wall = time.monotonic() - t0
+    end = final_record(sup.events_path) or {}
+    got = (end.get("n_states"), end.get("diameter"),
+           end.get("n_transitions"))
+    # each child's run_start (its pid, the count it resumed at) and the
+    # furthest count its events reached
+    by_pid, cur = {}, None
+    for ln in open(sup.events_path):
+        e = json.loads(ln)
+        if e["event"] == "run_start":
+            cur = by_pid[e["pid"]] = {"start": e,
+                                      "reached": e.get("n_states", 1)}
+        elif cur is not None and e["event"] in ("segment", "checkpoint",
+                                                 "run_end"):
+            cur["reached"] = max(cur["reached"], e.get("n_states", 0))
+    lives = sorted((spawned[pid][0], pid, d) for pid, d in by_pid.items())
+    start_s = [round(d["start"]["ts"] - spawned[pid][1], 2)
+               for _a, pid, d in lives]
+    redone = [prev[2]["reached"] - d["start"].get("n_states", 1)
+              for prev, (_a, _p, d) in zip(lives, lives[1:])]
+    truncated = [os.path.basename(t[1]) for t in monkey.truncated]
+    # the children's own kernel launches (a SIGKILLed child reports none)
+    reported = child_launches(str(work))
+    launches = {name: sum(n[name] for n in reported if n)
+                for name in ("step", "fingerprint")}
+    say(f"phase 14b: phase 10's universe as a campaign: {res.outcome} after "
+        f"{res.attempts} spawns, {len(monkey.fired)} SIGKILLs "
+        f"{monkey.fired}, truncated {truncated}, quarantined "
+        f"{len(res.quarantined)}; final states {got[0]}, diameter {got[1]}, "
+        f"transitions {got[2]} (expected {REAL_EXPECT}); spawn to "
+        f"run_start s by child {start_s} (child 0 a fresh start, the others "
+        f"reload a snapshot); states redone after each kill {redone}; "
+        f"resumed at {[d['start'].get('n_states') for _a, _p, d in lives]}; "
+        f"kernel launches reported by child {reported}; wall {wall:.1f} s")
+    if res.outcome != "ok" or got != REAL_EXPECT \
+            or len(monkey.fired) != 2 or not monkey.truncated \
+            or not res.quarantined or res.attempts != 3 \
+            or "restored generation" not in said.getvalue():
+        fail(f"phase 14b: {res} {said.getvalue()[-800:]}")
+    if not reported or reported[-1] is None or not reported[-1]["step"]:
+        fail(f"phase 14b: the last child reported no K1 launch: {reported}")
+    results["launches_phase14b_campaign"] = launches
+    shutil.rmtree(work, ignore_errors=True)
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device visible to torch", file=sys.stderr)
@@ -1513,7 +1740,7 @@ def main() -> int:
               file=sys.stderr)
         return 2
     phases = [phase1, phase2, phase3, phase4, phase5, phase6, phase7,
-              phase8, phase9, phase10, phase11, phase12, phase13]
+              phase8, phase9, phase10, phase11, phase12, phase13, phase14]
     t_all = time.monotonic()
     card = phase0()
     results = {}
@@ -1546,7 +1773,8 @@ def main() -> int:
                     results[f"launches_{path}"][name]
                 for path in ("phase3_host", "phase4", "phase5",
                              "phase6_sym", "phase6", "phase7", "phase9",
-                             "phase10", "phase12", "phase13a", "phase13b")},
+                             "phase10", "phase12", "phase13a", "phase13b",
+                             "phase14a", "phase14b_campaign")},
             "audit_launches": {
                 "phase10": results["audit_launches_phase10"][name]},
             "mismatches": r["mismatches"],

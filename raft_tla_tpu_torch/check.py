@@ -26,9 +26,10 @@ and filters; ``--block``, ``--retention``, ``--keep-levels``,
 ``--deadline``, ``--host-dedup``, ``--prefetch``; other engines ignore
 them, as the reference's do), ``--engine host`` (the step per chunk on the
 card, a fingerprint set on the host) and ``--engine ref`` (the
-pure-Python oracle).  ``--stats`` (one progress line per segment) and
-``--checkpoint``/``--resume`` need ``device`` or ``ddd``.  ``--emit-tlc
-DIR`` writes the run's TLC twin, then runs it.
+pure-Python oracle).  ``--stats`` (one progress line per segment),
+``--checkpoint``/``--resume`` and the run-event log (``--events PATH``,
+with ``--phase-timers`` and ``--trace``; obs/) need ``device`` or
+``ddd``.  ``--emit-tlc DIR`` writes the run's TLC twin, then runs it.
 
 This port supports them in parity and faithful mode (``--faithful``: the
 history variables carried as state, with the ``*Hist`` invariants), with
@@ -52,14 +53,24 @@ EXIT_LIVENESS = 13       # TLC's exit code for liveness-property violations
 EXIT_STOPPED = 14        # a lossless stop short of exhaustion
 EXIT_ERROR = 1
 
-# Reference flags that this slice refuses, with the ROADMAP.md queue item.
+# Reference flags that this slice refuses, each with its refusal: the
+# ROADMAP.md queue item, or the spelling here.
+_LATER = "is not ported to raft_tla_tpu_torch yet (ROADMAP.md queue A: {})"
+_SIM = _LATER.format("item 8, simulation and fleets")
+_GATED = _LATER.format("item 7, gated variants")
+_PARALLEL = _LATER.format("item 11, parallel engines")
 _NOT_PORTED = {
-    "--simulate": "item 8, simulation and fleets",
-    "--route": "item 7, gated variants",
-    "--device-dedup": "item 7, gated variants",
-    "--devdedup": "item 7, gated variants",
-    "--reshard-to": "item 11, parallel engines",
-    "--events": "item 4, run events and campaigns",
+    "--simulate": _SIM, "--depth": _SIM, "--walkers": _SIM, "--seed": _SIM,
+    "--fleet": _SIM, "--steer": _SIM, "--fault-weights": _SIM,
+    "--route": _GATED, "--device-dedup": _GATED, "--devdedup": _GATED,
+    "--prescan": _GATED, "--sig-prune": _GATED, "--megakernel": _GATED,
+    "--ring": _LATER.format("item 9, the paged and streamed engines"),
+    "--reshard-to": _PARALLEL, "--reshard-cap": _PARALLEL,
+    "--devices": _PARALLEL, "--seg-chunks": _PARALLEL,
+    "--cp-lanes": _PARALLEL, "--slices": _PARALLEL,
+    "--compile-cache": _LATER.format(
+        "item 12, serving (the warm-start cache)"),
+    "--cpu": "is spelled --device cpu in raft_tla_tpu_torch",
 }
 ENGINES = ("device", "ddd", "host", "ref")
 _DEVICE_ENGINES = ("device", "ddd")    # the reference's device-class engines
@@ -185,6 +196,29 @@ def build_argparser() -> argparse.ArgumentParser:
                         "makes any finding fatal")
     p.add_argument("--no-lint", action="store_true",
                    help="skip the static width-safety pass")
+    p.add_argument("--events", metavar="PATH",
+                   help="append the versioned JSONL run-event log "
+                        "(run_start/segment/level_end/checkpoint/"
+                        "violation/run_end — obs/events.py) to PATH. Sets "
+                        "RAFT_TLA_EVENTS process-wide so liveness "
+                        "re-runs inherit the same log")
+    p.add_argument("--trace", action="store_true",
+                   help="emit schema-v8 span events (trace spans with "
+                        "nesting and thread attribution) into the "
+                        "--events log; merge and export with "
+                        "python -m raft_tla_tpu_torch.obs.tracecli. Unlike "
+                        "--phase-timers this adds no device waits — spans "
+                        "record host-side dispatch walls. Distinct from "
+                        "--no-trace, which suppresses counterexample "
+                        "trace RENDERING. Also RAFT_TLA_TRACE=1")
+    p.add_argument("--phase-timers", action="store_true",
+                   help="attribute wall time to search phases (upload/"
+                        "expand/export/dedup/snapshot, plus dedup_submit/"
+                        "dedup_wait when background host dedup is on) in "
+                        "each segment event, at the cost of a device wait "
+                        "per phase — the ddd engine loses its two-deep "
+                        "overlap while this is on. Also RAFT_TLA_"
+                        "PHASE_TIMERS=1")
     for flag in _NOT_PORTED:
         p.add_argument(flag, nargs="?", const=True, default=None,
                        help=argparse.SUPPRESS)
@@ -311,10 +345,9 @@ def run(argv=None) -> tuple:
     engine is returned for callers that inspect it after the run."""
     p = build_argparser()
     args = p.parse_args(argv)
-    for flag, item in _NOT_PORTED.items():
+    for flag, why in _NOT_PORTED.items():
         if getattr(args, flag[2:].replace("-", "_")) is not None:
-            p.error(f"{flag} is not ported to raft_tla_tpu_torch yet "
-                    f"(ROADMAP.md queue A: {item})")
+            p.error(f"{flag} {why}")
     if args.engine not in ENGINES:
         p.error(f"--engine {args.engine} is not ported to raft_tla_tpu_torch "
                 "yet (ROADMAP.md queue A: items 9 and 11, the paged, "
@@ -332,7 +365,28 @@ def run(argv=None) -> tuple:
     if args.stats and args.engine not in _DEVICE_ENGINES:
         p.error(f"--stats requires a device-class engine "
                 f"(got {args.engine})")
+    if (args.events or args.phase_timers or args.trace) and \
+            args.engine not in _DEVICE_ENGINES:
+        p.error(f"--events/--phase-timers/--trace require a device-class "
+                f"engine (got {args.engine}); other engines emit no run "
+                "events")
     import os
+    from raft_tla_tpu_torch.obs.events import ENV_EVENTS, events_path
+    if args.trace and not events_path(args.events):
+        p.error("--trace requires --events PATH (spans are rows in the "
+                "run-event log; without a log there is nowhere to put "
+                "them)")
+    if args.events or args.phase_timers or args.trace:
+        # process-wide, as in the reference: every engine an invocation
+        # builds (liveness re-runs included) reads the same gates
+        from raft_tla_tpu_torch.obs.phases import ENV_PHASE_TIMERS
+        from raft_tla_tpu_torch.obs.trace import ENV_TRACE
+        if args.events:
+            os.environ[ENV_EVENTS] = args.events
+        if args.phase_timers:
+            os.environ[ENV_PHASE_TIMERS] = "1"
+        if args.trace:
+            os.environ[ENV_TRACE] = "1"
     for flag, env in (("host_dedup", "RAFT_TLA_HOSTDEDUP"),
                       ("prefetch", "RAFT_TLA_PREFETCH")):
         if getattr(args, flag) is not None:
@@ -411,6 +465,12 @@ def run(argv=None) -> tuple:
     print(f"{result.n_states} distinct states found, diameter "
           f"{result.diameter}, {result.n_transitions} transitions, "
           f"{wall:.2f}s ({result.n_states / max(wall, 1e-9):,.0f} states/s).")
+    if args.device == "cuda":
+        # this process's kernel launches (a campaign's child reports its
+        # own here, in its output file)
+        from raft_tla_tpu_torch.ops import pallas_fp, pallas_step
+        print(f"Kernel launches: step {pallas_step.launches}, fingerprint "
+              f"{pallas_fp.launches}", file=sys.stderr)
     if args.coverage:
         for fam, cnt in sorted(result.coverage.items()):
             print(f"  {fam}: {cnt} new states")

@@ -39,7 +39,19 @@ fields), which also tells the host where the chunk's streamed rows go and
 how many to pack.  A segment is the run of chunks that fills one of two
 ping-pong buffer sets; its rows go to pinned host memory on a copy stream
 while the next segment runs, and the harvest waits for that copy, a second
-host sync per segment (``stats["syncs"]`` counts both kinds).
+host sync per segment (``stats["syncs"]`` counts both kinds).  The chunk's
+stats also carry its live enabled lanes, whose maximum is the
+``route_peak`` of the ``--stats`` line.
+
+Run events (obs/): ``check(events=...)`` writes the reference's event log
+(``run_start``, a ``segment`` at every host flush and level end,
+``level_end``, ``checkpoint``, ``stop_requested`` at a deadline or SIGINT
+stop, ``run_end``).  The phases ``upload``, ``expand``, ``export``,
+``dedup``, ``dedup_submit``, ``dedup_wait`` and ``snapshot`` are timed
+when ``RAFT_TLA_PHASE_TIMERS`` is on (each waits for its own work on the
+card, so the two-deep overlap is gone while they are) and traced as
+spans under ``RAFT_TLA_TRACE``; off, every phase site is the shared null
+handle: no clock read, no wait.
 
 Snapshots are the reference's four-stream format (``.rows``/``.links``/
 ``.con``/``.keys`` plus the metadata npz, or the frontier level files),
@@ -654,7 +666,9 @@ class DDDEngine:
         """Expand rows ``[r0, r0 + n)`` of the block: the step, the
         refbfs-exact truncation, the filter.  Returns the chunk's device
         tensors and its host stats ``(n_stream, n_valid, overflow,
-        viol_kind, viol_inv, drow)`` read in one sync."""
+        viol_kind, viol_inv, drow, n_live)`` read in one sync; ``n_live``
+        is the reference's per-chunk route count, the live enabled lanes
+        (``fvalid``) before the violation cut."""
         A, dev = self.A, self.device
         n_inv = len(self.config.invariants)
         ev = self._events
@@ -705,7 +719,8 @@ class DDDEngine:
         else:
             viol_inv = torch.zeros((), dtype=I64, device=dev)
         stats = torch.stack([t.to(I64) for t in (
-            rank[-1] + 1, kvalid.sum(), ovf, viol_kind, viol_inv, drow)])
+            rank[-1] + 1, kvalid.sum(), ovf, viol_kind, viol_inv, drow,
+            fvalid.sum())])
         host = self._syncs.read(stats)
         return out, kh, kl, stream, rank, host
 
@@ -718,12 +733,13 @@ class DDDEngine:
         reference's ``_build_segment`` loop).  Returns ``(c, stats)``:
         the next chunk index and a dict of ``cursor``, ``n_valid``,
         ``fail``, ``viol_kind``, ``viol_inv``, ``dead_g`` (block-relative),
-        ``steps`` and ``done``."""
+        ``steps``, ``done`` and ``peak`` (the most live enabled lanes in
+        any of its chunks)."""
         B, A, W = self.config.chunk, self.A, self.lay.width
         NK, OCAP = B * A, self.caps.seg_rows
         n_chunks = -(-block_rows // B)
         d = bufs.dev
-        cursor = n_valid = fail = vk = vi = steps = 0
+        cursor = n_valid = fail = vk = vi = steps = peak = 0
         dead_g = -1
         c = c0
         while (c < n_chunks and vk == 0 and fail == 0 and steps < budget
@@ -732,7 +748,8 @@ class DDDEngine:
             n = min(B, block_rows - r0)
             out, kh, kl, stream, rank, host = self._chunk(tbl, fbuf, fcon,
                                                           r0, n)
-            k, nv, ovf, vk, vi, drow = host
+            k, nv, ovf, vk, vi, drow, n_live = host
+            peak = max(peak, n_live)
             if k:
                 sidx = torch.empty(n * A + 1, dtype=I64, device=self.device)
                 sidx.scatter_(0, torch.where(stream, rank, n * A),
@@ -760,7 +777,7 @@ class DDDEngine:
         self.stats["segments"] = self.stats.get("segments", 0) + 1
         return c, dict(cursor=cursor, n_valid=n_valid, fail=fail,
                        viol_kind=vk, viol_inv=vi, dead_g=dead_g,
-                       steps=steps, done=c >= n_chunks)
+                       steps=steps, done=c >= n_chunks, peak=peak)
 
     def _export(self, bufs: SegBufs, n: int):
         """Start the copy of the first ``n`` rows of ``bufs`` to the host;
@@ -859,7 +876,8 @@ class DDDEngine:
               checkpoint_every_s: float = 600.0,
               resume: str | None = None,
               deadline_s: float | None = None,
-              retain_store: bool = False) -> EngineResult:
+              retain_store: bool = False,
+              events: str | None = None) -> EngineResult:
         """Run the search from Init (or ``init_override``, or a ``resume``
         snapshot of either package) to the end, or until ``deadline_s``
         seconds after the first harvest or a SIGINT (then ``complete`` is
@@ -868,17 +886,24 @@ class DDDEngine:
         at every level end.  ``retain_store=True`` (full retention only)
         leaves ``(host, constore, keystore, n_states)`` open on
         ``self.retained`` for a graph export (models/liveness.ddd_graph);
-        the caller closes them."""
+        the caller closes them.  ``events`` is the run-event log (else
+        ``RAFT_TLA_EVENTS``; obs/events.py), with the phase timers and
+        trace spans of ``RAFT_TLA_PHASE_TIMERS`` and ``RAFT_TLA_TRACE``."""
         with contextlib.ExitStack() as stack:
             install_sigint_boundary_stop(self, stack)
             return self._check_impl(init_override, on_progress, checkpoint,
                                     checkpoint_every_s, resume, deadline_s,
-                                    retain_store, stack)
+                                    retain_store, stack, events)
 
     def _check_impl(self, init_override, on_progress, checkpoint,
                     checkpoint_every_s, resume, deadline_s, retain_store,
-                    _cleanup) -> EngineResult:
+                    _cleanup, events=None) -> EngineResult:
         t0 = time.monotonic()
+        tel = RunTelemetry(
+            "ddd", config=self.config, caps=self.caps,
+            on_progress=on_progress, events=events,
+            resumed=resume is not None, n0=1, t0=t0)
+        _cleanup.callback(tel.close)
         dev = self.device
         bounds = self.bounds
         init_py = init_override if init_override is not None \
@@ -888,11 +913,13 @@ class DDDEngine:
 
         for nm in self.config.invariants:
             if not inv_mod.py_invariant(nm)(init_py, bounds):
-                return EngineResult(
+                res = EngineResult(
                     n_states=1, diameter=0, n_transitions=0,
                     coverage=Counter(),
                     violation=Violation(nm, init_py, [(None, init_py)]),
                     levels=[1], wall_s=time.monotonic() - t0)
+                tel.run_end(res)
+                return res
 
         self._syncs = SyncCounter()
         self._events = deque() if dev.type == "cuda" else None
@@ -979,9 +1006,11 @@ class DDDEngine:
         # Background dedup worker (RAFT_TLA_HOSTDEDUP): depth-1 ordered,
         # so flush i's new keys are in the master before flush i+1's dedup
         # starts; every reader of flush-mutated state drains first.
+        phases = tel.phases
         worker = flushq.DedupWorker(
             lambda batch: self._flush(batch, master, host, constore,
-                                      keystore, cov)) \
+                                      keystore, cov),
+            phases=phases) \
             if self._host_dedup else None
         if worker is not None:
             _cleanup.callback(worker.close)
@@ -1004,9 +1033,11 @@ class DDDEngine:
             """Drain the background queue, then flush the rest inline."""
             nonlocal n_states
             if worker is not None:
-                n_states += waited(worker.drain)
-            n_states += waited(self._flush, pend, master, host, constore,
-                               keystore, cov)
+                with phases.phase("dedup_wait"):
+                    n_states += waited(worker.drain)
+            with phases.phase("dedup"):
+                n_states += waited(self._flush, pend, master, host,
+                                   constore, keystore, cov)
 
         Fcap = self.caps.block
         side = torch.cuda.Stream(dev) if dev.type == "cuda" else None
@@ -1044,11 +1075,13 @@ class DDDEngine:
                     (start, rows, level_ends[-1])
                 return load_block(start, rows, slot)
 
-            prefetcher = prefetch.BlockPrefetcher(pf_load)
+            prefetcher = prefetch.BlockPrefetcher(pf_load, phases=phases,
+                                                  tracer=tel.trace)
             _cleanup.callback(prefetcher.close)
         viol = None          # (kind, inv_idx, dead_g) once detected
         viol_key = None
         fail = 0
+        route_peak = 0       # most live enabled lanes seen in any chunk
         complete = True
         stopped = False
         t_warm = None
@@ -1057,8 +1090,7 @@ class DDDEngine:
                                     self.SEG_CLAMP_S)
         budget = pacer.budget
         last_ckpt = time.monotonic()
-        tel = RunTelemetry(config=self.config, on_progress=on_progress,
-                           resumed=resume is not None, n0=n_states, t0=t0)
+        tel.run_start(n_states=n_states)
 
         def progress():
             if not tel.active:
@@ -1072,6 +1104,7 @@ class DDDEngine:
                 n_states=n_states, n_incl=n_incl, level=len(level_ends),
                 n_transitions=n_trans,
                 coverage=dict(aggregate_coverage(self.table, cov)),
+                route_peak=route_peak,
                 flush_backlog=worker.backlog() if worker else None,
                 upload_wait_ms=round(prefetcher.wait_s * 1e3, 3)
                 if prefetcher else None,
@@ -1089,15 +1122,20 @@ class DDDEngine:
                 b_rows = min(Fcap, lvl_hi - b_start)
                 n_trans_mark = n_trans
                 if prefetcher is not None:
-                    fbuf, fcon, ev = prefetcher.take(b_start, b_rows)
+                    with phases.phase("upload") as ph:
+                        fbuf, fcon, ev = prefetcher.take(b_start, b_rows)
+                        ph.sync(ev)
                     nxt = b_start + Fcap
                     if nxt < lvl_hi:
                         prefetcher.schedule(nxt, min(Fcap, lvl_hi - nxt))
                 else:
                     if worker is not None:
-                        n_states += waited(worker.drain)
-                    fbuf, fcon, ev = load_block(b_start, b_rows,
-                                                blocks_done % 2)
+                        with phases.phase("dedup_wait"):
+                            n_states += waited(worker.drain)
+                    with phases.phase("upload") as ph:
+                        fbuf, fcon, ev = load_block(b_start, b_rows,
+                                                    blocks_done % 2)
+                        ph.sync(ev)
                 if ev is not None:      # the card waits, not the host
                     torch.cuda.current_stream(dev).wait_event(ev)
                 c = 0
@@ -1113,20 +1151,29 @@ class DDDEngine:
                             and time.monotonic() - t_warm > deadline_s):
                         complete = False
                         stopped = True
+                        tel.stop_requested("deadline")
                     if not stopped and self._sigint:
                         complete = False
                         stopped = True
+                        tel.stop_requested("sigint")
                     if not (dispatched_all or stopped) and free:
                         idx = free.pop(0)
                         t_seg = time.monotonic()
-                        c, sst = self.run_segment(tbl, bufsets[idx], fbuf,
-                                                  fcon, b_rows, c, budget)
+                        # with the phase timers on, each phase waits for
+                        # its own work: honest walls, no two-deep overlap
+                        with phases.phase("expand") as ph:
+                            c, sst = self.run_segment(
+                                tbl, bufsets[idx], fbuf, fcon, b_rows, c,
+                                budget)
+                            ph.sync(bufsets[idx].dev)
                         if sst["steps"]:
                             budget = pacer.update(
                                 time.monotonic() - t_seg, sst["steps"])
                             self.seg_chunks = budget
-                        hbuf, cev = self._export(bufsets[idx],
-                                                 sst["cursor"])
+                        with phases.phase("export") as ph:
+                            hbuf, cev = self._export(bufsets[idx],
+                                                     sst["cursor"])
+                            ph.sync(cev)
                         q.append((idx, sst, hbuf, cev))
                         dispatched_all = sst["done"] or bool(
                             sst["viol_kind"] or sst["fail"])
@@ -1136,8 +1183,10 @@ class DDDEngine:
                         break
                     idx, sst, hbuf, cev = q.pop(0)
                     if cev is not None:
-                        self._syncs.wait(cev)
+                        with phases.phase("export"):
+                            self._syncs.wait(cev)
                     self._fold_events()
+                    route_peak = max(route_peak, sst["peak"])
                     free.append(idx)
                     if stopped:
                         continue             # drop post-stop segments
@@ -1174,12 +1223,14 @@ class DDDEngine:
                             self.caps.flush:
                         if worker is not None:
                             n_pend = sum(len(x) for x in pend["keys"])
-                            waited(worker.submit, seal(pend), n_pend)
+                            with phases.phase("dedup_submit"):
+                                waited(worker.submit, seal(pend), n_pend)
                             n_states += worker.collect()
                         else:
-                            n_states += waited(self._flush, pend, master,
-                                               host, constore, keystore,
-                                               cov)
+                            with phases.phase("dedup"):
+                                n_states += waited(self._flush, pend,
+                                                   master, host, constore,
+                                                   keystore, cov)
                         if n_states > _IDX_CEIL:
                             fail = FAIL_INDEX
                             stopped = True
@@ -1190,10 +1241,12 @@ class DDDEngine:
                 if checkpoint and (time.monotonic() - last_ckpt
                                    >= checkpoint_every_s):
                     flush_sync()
-                    self.save_checkpoint(checkpoint, host, constore,
-                                         keystore, n_states, n_trans, cov,
-                                         level_ends, blocks_done,
-                                         (hi0, lo0))
+                    with phases.phase("snapshot"):
+                        self.save_checkpoint(checkpoint, host, constore,
+                                             keystore, n_states, n_trans,
+                                             cov, level_ends, blocks_done,
+                                             (hi0, lo0))
+                    tel.checkpoint(checkpoint, n_states)
                     last_ckpt = time.monotonic()
             if stopped:
                 break
@@ -1227,9 +1280,11 @@ class DDDEngine:
             # graceful stop (SIGINT or deadline): a mid-level snapshot
             # with n_trans as of the partial block's start — its states
             # dedup on the re-run, its transitions would count twice
-            self.save_checkpoint(checkpoint, host, constore, keystore,
-                                 n_states, n_trans_mark, cov, level_ends,
-                                 blocks_done, (hi0, lo0))
+            with phases.phase("snapshot"):
+                self.save_checkpoint(checkpoint, host, constore, keystore,
+                                     n_states, n_trans_mark, cov,
+                                     level_ends, blocks_done, (hi0, lo0))
+            tel.checkpoint(checkpoint, n_states)
         self._fold_events(wait=True)
         if fail:
             _cleanup.close()
@@ -1263,6 +1318,7 @@ class DDDEngine:
             coverage=aggregate_coverage(self.table, cov),
             violation=violation, levels=levels_arr,
             wall_s=time.monotonic() - t0, complete=complete)
+        tel.run_end(result)
         _cleanup.close()
         return result
 

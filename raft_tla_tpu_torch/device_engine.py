@@ -33,10 +33,13 @@ one small stats vector; :attr:`DeviceEngine.stats` counts them, with the
 chunks and (on the card) the device time of the steps (``step_s``) and of
 the dedup inserts (``dedup_s``).
 
-With an ``on_progress`` callback (the CLI's ``--stats``) the chunks run in
-segments paced as the reference's are (utils/pacing.py, about 8 s each),
-and each segment ends with one :class:`~raft_tla_tpu_torch.obs.events.
-ProgressRecord` (one more host read, the coverage counters).
+With an ``on_progress`` callback (the CLI's ``--stats``) or a run-event log
+(``--events``) the chunks run in segments paced as the reference's are
+(utils/pacing.py, about 8 s each), and each segment ends with one
+:class:`~raft_tla_tpu_torch.obs.events.ProgressRecord` (one more host read,
+the coverage counters).  The phase timers (``--phase-timers``) time each
+chunk as ``expand`` (a chunk ends in a host sync, so no extra wait), the
+coverage read as ``export`` and checkpoints as ``snapshot``.
 
 Results do not depend on ``chunk``: a key's winner is the smallest flat
 index, and chunks walk rows in order.
@@ -60,10 +63,13 @@ from raft_tla_tpu_torch.config import CheckConfig
 from raft_tla_tpu_torch.engine import DEADLOCK, EngineResult, Violation
 from raft_tla_tpu_torch.models import interp, invariants as inv_mod, spec as S
 from raft_tla_tpu_torch.obs.events import RunTelemetry
+from raft_tla_tpu_torch.obs.phases import PhaseTimers
 from raft_tla_tpu_torch.ops import pallas_fp, pallas_step
 from raft_tla_tpu_torch.ops import state as st
 from raft_tla_tpu_torch.ops import symmetry as sym
 from raft_tla_tpu_torch.utils import ckpt, pacing
+
+_NO_PHASES = PhaseTimers()           # disabled: the shared null handle
 
 I32, I64 = torch.int32, torch.int64
 EMPTY = -1                  # table sentinel: both words all-ones
@@ -464,6 +470,7 @@ class DeviceEngine:
         the end); returns whether it is done.  With an active ``tel`` the
         chunks run in paced segments, each closed by a progress record."""
         steps, last = 0, time.monotonic()
+        phases = tel.phases if tel is not None else _NO_PHASES
         pacer = None
         if tel is not None and tel.active:
             pacer = pacing.SegmentPacer(self.seg_chunks, self.SEG_MIN,
@@ -478,7 +485,8 @@ class DeviceEngine:
                     if pacer is not None and seg:
                         self._progress(tel)
                     return False
-                self._chunk()
+                with phases.phase("expand"):   # the chunk ends in a sync
+                    self._chunk()
                 self.stats["chunks"] = self.stats.get("chunks", 0) + 1
                 steps += 1
                 if pacer is not None:
@@ -489,14 +497,18 @@ class DeviceEngine:
                 self.seg_chunks = pacer.update(time.monotonic() - t_seg, seg)
                 seg, t_seg = 0, time.monotonic()
             if checkpoint and time.monotonic() - last >= checkpoint_every_s:
-                self.save_checkpoint(checkpoint, init_key)
+                with phases.phase("snapshot"):
+                    self.save_checkpoint(checkpoint, init_key)
+                if tel is not None:
+                    tel.checkpoint(checkpoint)
                 last = time.monotonic()
         return True
 
     def _progress(self, tel) -> None:
         """Close a segment: one progress record (the reference's)."""
         c = self.carry
-        cov = aggregate_coverage(self.table, c["cov"][:self.A].cpu())
+        with tel.phases.phase("export"):
+            cov = aggregate_coverage(self.table, c["cov"][:self.A].cpu())
         self._syncs.n += 1
         self.stats["segments"] = self.stats.get("segments", 0) + 1
         tel.segment(n_states=c["n_states"], level=c["lvl"],
@@ -507,7 +519,8 @@ class DeviceEngine:
               checkpoint_every_s: float = 600.0,
               resume: str | None = None,
               max_chunks: int | None = None,
-              on_progress=None, retain_carry: bool = False) -> EngineResult:
+              on_progress=None, retain_carry: bool = False,
+              events: str | None = None) -> EngineResult:
         """Run the search from Init (or ``init_override``, or a ``resume``
         checkpoint) to the end, or for at most ``max_chunks`` chunks
         (then ``complete`` is False and ``checkpoint``, if given, holds the
@@ -518,18 +531,40 @@ class DeviceEngine:
         ...) on ``self.retained_carry`` for a post-hoc pass (the liveness
         graph export, models/liveness.engine_graph).  Its buffers stay in
         device memory until the caller drops both ``retained_carry`` and
-        ``carry``, which is the same dict."""
+        ``carry``, which is the same dict.
+
+        ``events`` is the run-event log (else ``RAFT_TLA_EVENTS``;
+        obs/events.py), with the phase timers and trace spans of
+        ``RAFT_TLA_PHASE_TIMERS`` and ``RAFT_TLA_TRACE``."""
         t0 = time.monotonic()
+        tel = RunTelemetry(
+            "device", config=self.config, caps=self.caps,
+            on_progress=on_progress, events=events,
+            resumed=resume is not None,
+            n0=1 if resume is None else None, t0=t0)
+        try:
+            return self._check_impl(tel, t0, init_override, checkpoint,
+                                    checkpoint_every_s, resume, max_chunks,
+                                    retain_carry)
+        finally:
+            tel.close()
+
+    def _check_impl(self, tel, t0, init_override, checkpoint,
+                    checkpoint_every_s, resume, max_chunks,
+                    retain_carry) -> EngineResult:
         bounds = self.bounds
         init_py = init_override if init_override is not None \
             else interp.init_state(bounds)
+        tel.run_start()
         for nm in self.config.invariants:
             if not inv_mod.py_invariant(nm)(init_py, bounds):
-                return EngineResult(
+                res = EngineResult(
                     n_states=1, diameter=0, n_transitions=0,
                     coverage=Counter(),
                     violation=Violation(nm, init_py, [(None, init_py)]),
                     levels=[1], wall_s=time.monotonic() - t0)
+                tel.run_end(res)
+                return res
         self._syncs = SyncCounter()
         # CUDA events around each step and each dedup insert (device time)
         self._events = [] if self.device.type == "cuda" else None
@@ -541,13 +576,12 @@ class DeviceEngine:
                                    interp.constraint_ok(init_py, bounds), key)
         if resume:
             self.load_checkpoint(resume, init_key)
-        tel = RunTelemetry(config=self.config, on_progress=on_progress,
-                           resumed=resume is not None,
-                           n0=1 if resume is None else None, t0=t0)
-        done = self._run(max_chunks, checkpoint, checkpoint_every_s, init_key,
-                         tel)
+        done = self._run(max_chunks, checkpoint, checkpoint_every_s,
+                         init_key, tel)
         if not done and checkpoint:
-            self.save_checkpoint(checkpoint, init_key)
+            with tel.phases.phase("snapshot"):
+                self.save_checkpoint(checkpoint, init_key)
+            tel.checkpoint(checkpoint)
         if self._events is not None:
             torch.cuda.synchronize(self.device)
             for key, (a, b) in (("step_s", (0, 1)), ("dedup_s", (2, 3))):
@@ -564,11 +598,13 @@ class DeviceEngine:
         violation = self._extract_trace() if c["viol_g"] >= 0 else None
         if retain_carry:
             self.retained_carry = c
-        return EngineResult(
+        result = EngineResult(
             n_states=c["n_states"], diameter=len(levels) - 1,
             n_transitions=c["n_trans"], coverage=coverage,
             violation=violation, levels=levels,
             wall_s=time.monotonic() - t0, complete=done)
+        tel.run_end(result)
+        return result
 
     def _extract_trace(self) -> Violation:
         """Two transfers: parent/lane links, then the chain's rows."""

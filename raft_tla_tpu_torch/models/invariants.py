@@ -222,6 +222,25 @@ HISTORY_REGISTRY = {
 }
 REGISTRY.update(HISTORY_REGISTRY)
 
+# Which struct fields each invariant's predicate reads (the reference's
+# table, for analysis/cfglint): an invariant whose READS no transition of
+# the active spec subset writes is vacuous, and one reading fields a VIEW
+# rewrites is checked only up to the view.  Keep in sync with the
+# _py_*/_t_* bodies above.
+READS = {
+    "NoTwoLeaders": ("role", "term"),
+    "ElectionSafety": ("role", "term"),
+    "NaiveNoTwoLeaders": ("role",),
+    "LogMatching": ("logTerm", "logVal", "logLen"),
+    "CommittedWithinLog": ("commitIndex", "logLen"),
+    "LeaderCompleteness": ("role", "term", "logTerm", "logVal", "logLen",
+                           "commitIndex"),
+    "ElectionSafetyHist": ("eTerm", "eLeader"),
+    "LeaderCompletenessHist": ("eTerm", "eLog", "term", "commitIndex",
+                               "logTerm", "logVal", "logLen"),
+    "AllLogsPrefixClosed": ("allLogs",),
+}
+
 # name -> predicate code in csrc/step.cu (``enum Invariant``)
 CODES = {
     "NoTwoLeaders": 0, "ElectionSafety": 0, "NaiveNoTwoLeaders": 1,

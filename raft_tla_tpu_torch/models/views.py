@@ -32,6 +32,12 @@ REGISTRY = {
                  "(exact: dead-variable elimination)",
 }
 
+# The fields a view rewrites before fingerprinting (analysis/cfglint:
+# invariants reading them are checked only up to the view).
+VIEW_WRITES = {
+    "deadvotes": ("vResp", "vGrant"),
+}
+
 # The permutation axes a view commutes with (SYMMETRY on any other axis
 # would make the viewed keys orbit-dependent).
 EQUIVARIANT_AXES = {

@@ -23,8 +23,11 @@ began, while an in-flight flush appends strictly past them.
 Worker exceptions are captured and re-raised on the main thread at the
 next `submit`/`collect`/`drain`, so a flush failure cannot be silently
 swallowed.  Gated by ``RAFT_TLA_HOSTDEDUP`` (utils/keyset.py); the
-``off`` arm never constructs a worker.  ``phases`` (duck-typed: an object
-whose ``phase(name)`` is a context manager, or None) times each flush.
+``off`` arm never constructs a worker.  ``phases`` (a ``PhaseTimers``;
+duck-typed, may be None) times each flush: it accrues a
+``dedup@raft-tla-flush`` bucket and, with tracing on, a v8 ``dedup`` span
+on the flush thread's own track, beside the main thread's
+``dedup_submit``/``dedup_wait``.
 """
 
 from __future__ import annotations

@@ -85,10 +85,13 @@ class BlockPrefetcher:
 
     def __init__(self, loader: Callable[[int, int, int], Any], *,
                  slots: int = 2, name: str = "raft-tla-prefetch",
-                 phases=None):
+                 phases=None, tracer=None):
         self._loader = loader
-        self._phases = phases               # phase timers or None: the
-        # worker-side stage is timed so background reads are attributed
+        self._phases = phases               # PhaseTimers | None: the
+        # worker-side stage accrues a prefetch@<thread> bucket (and a
+        # span) so background reads are attributed, not invisible
+        self._tracer = tracer               # SpanTracer | None: take()
+        # emits a hit/miss-tagged span nested under the engine's upload
         self._slots = int(slots)
         self._next_slot = 0
         self._gen = 0                       # bumped by invalidate()
@@ -158,6 +161,12 @@ class BlockPrefetcher:
         matching in-flight stage (hit), else loads synchronously on the
         calling thread (miss).  Either way the worker is quiescent when
         this returns."""
+        tr = self._tracer
+        if tr is not None and tr.enabled:
+            with tr.span("take", start=int(start), rows=int(rows)) as sp:
+                res, hit = self._take(start, rows)
+                sp.set(hit=hit)
+                return res
         return self._take(start, rows)[0]
 
     def _take(self, start: int, rows: int) -> tuple:

@@ -100,10 +100,22 @@ def test_cli_result_lines_match_jax_cli(tmp_path, args, invariant, servers,
 
 def test_cli_refuses_what_is_not_ported(tmp_path):
     cfg = write_cfg(tmp_path / "m.cfg")
-    for flag in ("--simulate", "--events"):
-        with pytest.raises(SystemExit) as e:
-            _run(cli.main, [cfg, flag, "x"])
-        assert e.value.code == 2
+    # every reference flag the port lacks names its ROADMAP item (--cpu:
+    # its spelling here)
+    for flag in ("--simulate", "--prescan", "--sig-prune", "--megakernel",
+                 "--ring", "--devices", "--seg-chunks", "--reshard-cap",
+                 "--cp-lanes", "--slices", "--compile-cache", "--cpu",
+                 "--depth", "--walkers", "--seed", "--fleet", "--steer",
+                 "--fault-weights"):
+        for argv in ([cfg, flag, "x"], [cfg, flag]):
+            err = io.StringIO()
+            with pytest.raises(SystemExit) as e, redirect_stderr(err):
+                cli.main(argv)
+            assert e.value.code == 2
+            want = "--device cpu" if flag == "--cpu" else \
+                "(ROADMAP.md queue A: item "
+            assert f"error: {flag} " in err.getvalue() and \
+                want in err.getvalue(), err.getvalue()
     view = write_cfg(tmp_path / "v.cfg", extra="VIEW MyView\n")
     code, _, err = _run(cli.main, [view, "--device", "cpu"])
     jcode, _, jerr = _run(jcli.main, [view, "--engine", "ref"])
@@ -140,6 +152,7 @@ def _is_forbidden(name):
 def test_port_sources_import_neither_jax_nor_the_reference():
     files = sorted((ROOT / "raft_tla_tpu_torch").rglob("*.py"))
     files.append(ROOT / "chip_smoke.py")
+    files += sorted((ROOT / "tools").rglob("*.py"))     # the port's tools
     bad = [(f.name, m) for f in files for m in _imports(f) if _is_forbidden(m)]
     assert len(files) > 15 and not bad
 

@@ -235,7 +235,7 @@ def test_cli_engine_ddd(tmp_path):
     assert "Invariant NaiveNoTwoLeaders is violated" in out
     c = cfg("r", "s1, s2", "NoTwoLeaders")
     for flag in ("--route", "--device-dedup", "--devdedup", "--reshard-to",
-                 "--events"):
+                 "--seg-chunks"):
         with pytest.raises(SystemExit) as e:
             _run([c, *base, flag, "4"])
         assert e.value.code == 2

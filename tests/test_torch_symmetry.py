@@ -4,8 +4,8 @@ The plain batched orbit key (``raft_tla_tpu_torch.ops.symmetry
 .build_orbit_fp``), which K1's orbit stage (``csrc/step.cu``) is held to on
 the card, is compared with the reference's ``build_orbit_fp`` (its scan) and
 ``orbit_fingerprint`` (one state, NumPy); the host key of the initial state
-with ``init_fingerprint``; and the plain step with ``symmetry``/``view`` with
-the reference's XLA step, every output.  Inputs are reachable states of the
+with ``init_fingerprint`` (the plain step with ``symmetry``/``view``:
+``test_torch_symmetry_step.py``).  Inputs are reachable states of the
 reference interpreter.  Tolerance: bit-exact (uint32 key bits).
 """
 
@@ -21,7 +21,6 @@ from raft_tla_tpu.models import interp as jinterp
 from raft_tla_tpu.models import spec as JS
 from raft_tla_tpu.models import views as jviews
 from raft_tla_tpu.ops import fingerprint as jfpr
-from raft_tla_tpu.ops import kernels as jkernels
 from raft_tla_tpu.ops import msgbits as jmb
 from raft_tla_tpu.ops import state as jst
 from raft_tla_tpu.ops import symmetry as jsym
@@ -29,7 +28,6 @@ from raft_tla_tpu.ops import symmetry as jsym
 from raft_tla_tpu_torch.config import Bounds, CheckConfig
 from raft_tla_tpu_torch.models import interp, views
 from raft_tla_tpu_torch.ops import fingerprint as fpr
-from raft_tla_tpu_torch.ops import kernels, pallas_step
 from raft_tla_tpu_torch.ops import state as st
 from raft_tla_tpu_torch.ops import symmetry as sym
 
@@ -135,69 +133,3 @@ def test_init_fingerprint_matches_jax(kw, axes, view):
             jcfg, js, jinterp.to_vec(js, jb)))
         assert sym.init_fingerprint(cfg, ps, interp.to_vec(ps, cfg.bounds)) \
             == want
-
-
-STEP_CASES = {
-    "3s2v-ServerxValue-deadvotes": (FULL3, "full", ("Server", "Value"),
-                                    "deadvotes", 6),
-    "3s2v-deadvotes": (FULL3, "full", (), "deadvotes", 6),
-    "4s-election-Server": (ELECT4, "election", ("Server",), None, 7),
-}
-
-
-@pytest.mark.parametrize("name", list(STEP_CASES))
-def test_plain_step_with_dedup_key_matches_xla_step(name):
-    """Every output of the plain step with ``symmetry``/``view`` against the
-    reference's XLA step: ``valid`` on every lane, the rest where valid."""
-    kw, spec, axes, view, depth = STEP_CASES[name]
-    jb, b = JBounds(**kw), Bounds(**kw)
-    invs = ("NoTwoLeaders", "LogMatching")
-    rows = _reach(jb, spec, depth, 48)
-    got = kernels.build_step(b, spec, invs, axes, view)(torch.as_tensor(rows))
-    want = jax.jit(jkernels.build_step(jb, spec, invs, axes, view,
-                                       megakernel=False))(jnp.asarray(rows))
-    val = np.asarray(want["valid"])
-    assert np.array_equal(got["valid"].numpy(), val) and val.sum() > 48
-    for k in ("svecs", "overflow", "fp_hi", "fp_lo", "inv_ok", "con_ok"):
-        g, w = got[k].numpy(), np.asarray(want[k])
-        if k in ("fp_hi", "fp_lo"):
-            g = g.view(np.uint32)
-            if axes:                             # invalid lanes: key 0
-                assert not g[~val].any() and not w[~val].any(), k
-        diff = g != w
-        if diff.ndim > 2:
-            diff = diff.reshape(diff.shape[:2] + (-1,)).any(-1)
-        assert not (diff & val).any(), k
-    # the CPU build of the K1 launcher is this plain step
-    cpu = pallas_step.build_step(b, spec, invs, "cpu", symmetry=axes,
-                                 view=view)(torch.as_tensor(rows))
-    assert torch.equal(cpu["fp_hi"], got["fp_hi"])
-
-
-def test_kernel_group_table_layout():
-    """K1's table: P rows of (p, inv), then Q rows of q, identity first."""
-    b = Bounds(**FULL3)
-    t = sym.kernel_tables(b, ("Server", "Value"))
-    assert t.dtype == np.int8 and t.size == 6 * 6 + 2 * 2
-    rows = t[:36].reshape(6, 6)
-    for r, p in zip(rows, sym.permutations(b)):
-        assert tuple(r[:3]) == p
-        assert all(p[r[3 + k]] == k for k in range(3))
-    assert tuple(t[36:38]) == (0, 1)
-    assert sym.kernel_tables(b, ()).tolist() == [0, 1, 2, 0, 1, 2]
-    assert sym.group_sizes(b, ("Server", "Value")) == (6, 2)
-
-
-def test_config_refusals_match_reference():
-    b = Bounds(n_servers=7, n_values=1, max_term=2, max_log=0, max_msgs=1)
-    with pytest.raises(ValueError, match="at most 6 servers"):
-        CheckConfig(bounds=b, symmetry=("Server",))
-    with pytest.raises(ValueError, match="at most 5 values"):
-        CheckConfig(bounds=Bounds(n_servers=2, n_values=6),
-                    symmetry=("Value",))
-    with pytest.raises(ValueError, match="unknown view 'nope'"):
-        CheckConfig(view="nope")
-    with pytest.raises(ValueError, match="not supported"):
-        CheckConfig(symmetry=("Term",))
-    assert views.REGISTRY.keys() == jviews.REGISTRY.keys()
-    assert views.EQUIVARIANT_AXES == jviews.EQUIVARIANT_AXES
