@@ -103,7 +103,22 @@ Phases (each prints a line; any failure exits non-zero):
    window boundary, two SIGKILLs, a truncated snapshot quarantined and the
    previous generation restored), ending at phase 10's counts, with the K1
    launches each child reports.  ``tools/campaign_run.py`` runs elect5 as a
-   campaign.
+   campaign;
+15. simulation on ``runs/MC3s2v.cfg`` without its SYMMETRY line at the
+   CLI's default bounds (t3 l2 m4 d1, W = 72, A = 48): 15a, ``--simulate
+   100000 --depth 100 --walkers 8192 --seed 7`` through the CLI (exit 0,
+   one K1 launch a walker step, one host fetch a dispatch); 15b, two
+   dispatches of 16 steps through K1 and through the plain step on the
+   card, lane histories, walk lengths, rows and counts bit-equal, the
+   draws equal on the card and the CPU, 256 walks replayed through the
+   interpreter to their rows, and K1's time a step against the whole
+   step's; 15c, the seeded NaiveNoTwoLeaders start (exit 12 in the first
+   dispatch, the trace replays, two leaders) and the 1-server election
+   with ``--deadlock`` (exit 11); 15d, the fleet at 1,024 walkers,
+   unsteered its walks equal to those of 15a's first 1,024 walkers, then
+   ``--steer 1.5 --fault-weights Restart=2,DropMessage=0.5`` through the
+   CLI with a higher coverage entropy.  ``tools/simulate_run.py`` runs
+   elect5 at up to 131,072 walkers.
 
 The line before the last is ``{"kernels": [...]}``; the last line is
 ``{"ok": true, "device": {...}}``.  Tolerance everywhere: bit-exact (all
@@ -239,6 +254,21 @@ LIVE4_WF = ("Next", "none", "Timeout")
 # streams, so the background flush thread would never take a batch).
 P14_FLUSH = 1 << 18
 
+# Phase 15: simulation on runs/MC3s2v.cfg without SYMMETRY at the CLI's
+# default bounds (t3 l2 m4 d1: servers, values, max_term, max_log,
+# max_msgs), the layout key of phase 0's build list.
+SIM_LAYOUT = (3, 2, 3, 2, 4)
+SIM_INVARIANTS = ("NoTwoLeaders", "LogMatching", "CommittedWithinLog",
+                  "LeaderCompleteness")
+SIM_WALKERS = 8192
+SIM_ARGS = ["--simulate", "100000", "--depth", "100", "--walkers",
+            str(SIM_WALKERS), "--seed", "7"]
+# 15d: at 1,024 walkers 50,000 behaviors take ~7 dispatches, so the
+# steering (from the counts at each dispatch's start) acts on ~6 of them;
+# walker g walks the same walk in a fleet of any size.
+SIM_FLEET_BEHAVIORS = 50_000
+SIM_FLEET_WALKERS = 1024
+
 
 def fail(msg: str) -> None:
     print(f"FAIL: {msg}", flush=True)
@@ -347,7 +377,7 @@ def phase0():
                (5, 2, 2, 0, 2), (6, 1, 2, 0, 1),
                (3, 2, 2, 1, 2, 6), (3, 2, 2, 1, 1, 6), (5, 2, 2, 0, 2, 6),
                (2, 1, 2, 1, 2, 4), (2, 2, 2, 1, 2, 4), (3, 1, 2, 0, 1, 6),
-               (3, 1, 3, 0, 4, 6)}
+               (3, 1, 3, 0, 4, 6), SIM_LAYOUT}
     jobs = {(pallas_fp.SOURCE, ())}
     for lay in layouts:
         d = pallas_step.layout_defines(bounds_of(lay))
@@ -1731,6 +1761,239 @@ def phase14b(results):
     shutil.rmtree(work, ignore_errors=True)
 
 
+def sim_cfg() -> str:
+    """``runs/MC3s2v.cfg`` with its SYMMETRY line dropped, in a temporary
+    copy: simulation replays concrete states."""
+    WORK.mkdir(parents=True, exist_ok=True)
+    path = WORK / "MC3s2v_nosym.cfg"
+    path.write_text("".join(ln for ln in FLAGSHIP_CFG.read_text()
+                            .splitlines(True)
+                            if not ln.startswith("SYMMETRY")))
+    return str(path)
+
+
+def sim_config():
+    """15a's universe as a ``CheckConfig``: the flagship's four invariants,
+    the CLI's default bounds."""
+    from raft_tla_tpu_torch.config import Bounds, CheckConfig
+    return CheckConfig(bounds=Bounds(*SIM_LAYOUT), spec="full",
+                       invariants=SIM_INVARIANTS)
+
+
+def sim_cli(label: str, argv: list) -> tuple:
+    """A simulation through the CLI with the kernel counts set to 0 just
+    before it and read just after: ``(code, sim, res, out, launches,
+    wall, peak GiB)``."""
+    from raft_tla_tpu_torch.ops import kernels, pallas_fp, pallas_step
+    err = io.StringIO()
+    torch.cuda.reset_peak_memory_stats()
+    pallas_step.launches = pallas_fp.launches = kernels.calls = 0
+    t0 = time.monotonic()
+    code, sim, res, out = run_cli(argv, err)
+    wall = time.monotonic() - t0
+    launches = {"step": pallas_step.launches,
+                "fingerprint": pallas_fp.launches,
+                "plain step": kernels.calls}
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    if sim is None or res is None:
+        fail(f"{label}: exit {code}: {out[-400:]} {err.getvalue()[-400:]}")
+    steps = sim.steps * sim.dispatches
+    say(f"{label}: exit {code}, {res.n_behaviors} behaviors, "
+        f"{res.n_states} states, deepest {res.max_depth_seen}, "
+        f"{res.states_per_sec:,.0f} states/s ({res.wall_s:.2f} s in the "
+        f"run, {wall:.2f} s with the build), K1 launches "
+        f"{launches['step']} for {steps} walker steps, plain step "
+        f"{launches['plain step']}, host fetches {sim.fetches} over "
+        f"{sim.dispatches} dispatches, peak device memory {peak:.2f} GiB")
+    if launches["step"] != steps or not steps or launches["plain step"] \
+            or sim.fetches != sim.dispatches:
+        fail(f"{label}: K1 did not drive every walker step alone, or the "
+             f"host read more than once a dispatch: {launches}")
+    return code, sim, res, out, launches, wall, peak
+
+
+def phase15(results):
+    """Simulation (``--simulate``) and the walker fleet (``--fleet``) on
+    the card: 15a the CLI on the reference universe, 15b K1's walk
+    against the plain step's, 15c a seeded violation and a deadlock,
+    15d the fleet."""
+    phase15a(results)
+    phase15b(results)
+    phase15c()
+    phase15d(results)
+
+
+def phase15a(results):
+    code, sim, res, out, launches, _wall, peak = sim_cli(
+        "phase 15a: --simulate 100000 --depth 100 --walkers 8192 --seed 7 "
+        "on runs/MC3s2v.cfg without SYMMETRY (t3 l2 m4 d1)",
+        [sim_cfg()] + SIM_ARGS)
+    if code != 0 or "No error has been found" not in out \
+            or res.n_behaviors < int(SIM_ARGS[1]) \
+            or not 0 < res.max_depth_seen <= 100:
+        fail(f"phase 15a: {out[-600:]}")
+    results["launches_phase15"] = launches
+    results["sim15a"] = {"behaviors": res.n_behaviors,
+                         "states": res.n_states,
+                         "states_per_sec": res.states_per_sec,
+                         "dispatches": sim.dispatches, "peak_gib": peak}
+
+
+def phase15b(results):
+    """The walker step of 15a, two dispatches of 16 steps at 8,192
+    walkers, through K1 and through the plain step on the card: lane
+    histories, walk lengths, rows and counts bit-equal; 256 walks replayed
+    through the interpreter reach their rows; the draw equal on the card
+    and on the CPU; K1's time per step against the whole step's."""
+    from raft_tla_tpu_torch.models import interp
+    from raft_tla_tpu_torch.ops import kernels
+    from raft_tla_tpu_torch.simulate import (Simulator, draw, replay,
+                                             walker_keys)
+    config = sim_config()
+    plain = kernels.build_step(config.bounds, "full", SIM_INVARIANTS)
+    walks, wall = [], {}
+    for name in ("K1", "plain", "plain", "K1"):
+        sim = Simulator(config, walkers=SIM_WALKERS, depth=100,
+                        steps_per_dispatch=16, seed=7)
+        if name == "plain":
+            sim.step_fn = plain
+        w = sim.start()
+        torch.cuda.synchronize()
+        t0 = time.monotonic()
+        counts = [sim.dispatch(w) for _ in range(2)]
+        torch.cuda.synchronize()
+        wall.setdefault(name, []).append((time.monotonic() - t0) / 32e-3)
+        walks.append((name, w, counts))
+    _n, wk, ck = walks[0]
+    bad = 0
+    for _p, wp, cp in walks[1:]:
+        bad += sum(int((a != b).sum()) for a, b in (
+            (wk.hist, wp.hist), (wk.hlen, wp.hlen), (wk.vecs, wp.vecs)))
+        bad += sum(x != y for x, y in zip(ck, cp))
+    keys = walker_keys(7, SIM_WALKERS, DEV)
+    ckeys = walker_keys(7, SIM_WALKERS, "cpu")
+    bad_draw = sum(int((draw(keys, t).cpu() != draw(ckeys, t)).sum())
+                   for t in (0, 1, 31, 10**9))
+    b = config.bounds
+    table = sim.table
+    init = interp.init_state(b)
+    hist, hlen, vecs = wk.hist.cpu(), wk.hlen.cpu(), wk.vecs.cpu()
+    idx = range(0, SIM_WALKERS, SIM_WALKERS // 256)
+    bad_replay = sum(
+        not np.array_equal(interp.to_vec(replay(
+            sim.model, table, b, init, hist[g].tolist(),
+            int(hlen[g]))[-1][1], b), vecs[g].numpy()) for g in idx)
+    k1_ms, k1_spread = cuda_ms(lambda: sim.step_fn(wk.vecs), 20)
+    step_ms = float(np.median(wall["K1"]))
+    plain_ms = float(np.median(wall["plain"]))
+    say(f"phase 15b: {SIM_WALKERS} walkers, 2 dispatches of 16 steps, K1 "
+        f"against the plain step on the card: {bad} mismatches (lane "
+        f"histories, walk lengths, rows, counts {ck[-1]}); draws card vs "
+        f"CPU: {bad_draw} mismatches; 256 walks replayed through the "
+        f"interpreter: {bad_replay} rows differ; whole step "
+        f"{step_ms:.3f} ms (K1 route, runs {wall['K1']}), K1 alone "
+        f"{k1_ms:.4f} ms (spread {k1_spread:.4f}) at [{SIM_WALKERS}, "
+        f"{sim.width}], the plain route's step {plain_ms:.3f} ms")
+    if bad or bad_draw or bad_replay:
+        fail("phase 15b: K1's walk differs from the plain step's")
+    results["sim15b"] = {"step_ms": step_ms, "k1_ms": k1_ms,
+                         "plain_step_ms": plain_ms}
+
+
+def phase15c():
+    """The Simulator API on the seeded NaiveNoTwoLeaders start carried to
+    15a's universe: a violation in the first dispatch whose trace replays
+    through ``interp.successors`` and ends with two leaders; then the
+    1-server election with ``--deadlock`` through the CLI: exit 11."""
+    from raft_tla_tpu_torch import check
+    from raft_tla_tpu_torch.config import Bounds, CheckConfig
+    from raft_tla_tpu_torch.models import interp, spec as SP
+    from raft_tla_tpu_torch.ops import msgbits as mb
+    from raft_tla_tpu_torch.simulate import Simulator
+    b = sim_config().bounds
+    start = interp.init_state(b)._replace(
+        role=(SP.LEADER, SP.FOLLOWER, SP.CANDIDATE), term=(2, 3, 3),
+        votedFor=(1, 3, 0), vGrant=(0b011, 0, 0b100),
+        msgs=((mb.rv_response(3, 1, 1, 2), 1),))
+    config = CheckConfig(bounds=b, spec="full",
+                         invariants=("NaiveNoTwoLeaders",))
+    sim = Simulator(config, walkers=SIM_WALKERS, depth=100, seed=7)
+    res = sim.run(10**7, init_override=start)
+    v = res.violation
+    trace = v.trace if v else []
+    table = SP.action_table(b, "full")
+    replays = bool(trace) and trace[0] == (None, start) and all(
+        (label, cur) in [(table[k].label(), t) for k, t in
+                         interp.successors(prev, b, table)]
+        for (_l, prev), (label, cur) in zip(trace, trace[1:]))
+    leaders = sum(x == SP.LEADER for x in trace[-1][1].role) if trace else 0
+    say(f"phase 15c: seeded NaiveNoTwoLeaders start, {SIM_WALKERS} walkers: "
+        f"{v.invariant if v else None} after {sim.dispatches} dispatch(es), "
+        f"trace {[label for label, _s in trace]}, replays through "
+        f"interp.successors: {replays}, leaders at the end {leaders}")
+    if not v or v.invariant != "NaiveNoTwoLeaders" or sim.dispatches != 1 \
+            or not replays or leaders < 2:
+        fail("phase 15c: the seeded violation")
+    cfg = write_cfg("deadlock1s", 1, 1, "NoTwoLeaders")
+    code, _s, dres, out, _l, _w, _p = sim_cli(
+        "phase 15c: 1-server election --deadlock --simulate", [
+            cfg, "--spec", "election", "--deadlock", "--max-term", "2",
+            "--max-log", "0", "--max-msgs", "2", "--simulate", "1000",
+            "--depth", "30", "--walkers", "1024", "--seed", "0"])
+    dead = dres.violation.state if dres.violation else None
+    stuck = dead is not None and not list(interp.successors(
+        dead, Bounds(n_servers=1, n_values=1, max_term=2, max_log=0,
+                     max_msgs=2), spec="election"))
+    if code != check.EXIT_DEADLOCK or "Deadlock reached" not in out \
+            or not stuck:
+        fail(f"phase 15c: deadlock: {out[-400:]}")
+
+
+def phase15d(results):
+    """The fleet on 15a's universe, 50,000 behaviors at 1,024 walkers:
+    unsteered (unit weights, tau 0) its walks equal those of 15a's first
+    1,024 walkers after as many dispatches of the Simulator at 8,192; then
+    steered with scenario weights through the CLI, whose coverage entropy
+    must be higher."""
+    import re
+    from raft_tla_tpu_torch.fleet import FleetSimulator
+    from raft_tla_tpu_torch.simulate import Simulator
+    config = sim_config()
+    fl = FleetSimulator(config, walkers=SIM_FLEET_WALKERS, depth=100, seed=7)
+    r = fl.run(SIM_FLEET_BEHAVIORS, snapshot_walks=True)
+    sim = Simulator(config, walkers=SIM_WALKERS, depth=100, seed=7)
+    w = sim.start()
+    for _ in range(fl.dispatches):
+        sim.dispatch(w)
+    n = SIM_FLEET_WALKERS
+    same = np.array_equal(r.walks[0], w.hist[:n].cpu().numpy()) \
+        and np.array_equal(r.walks[1], w.hlen[:n].cpu().numpy())
+    say(f"phase 15d: fleet tau 0, unit weights, {n} walkers: "
+        f"{r.n_behaviors} behaviors, {r.n_states} states, {fl.dispatches} "
+        f"dispatches, entropy {r.coverage_entropy:.4f}; walks equal to "
+        f"those of the first {n} walkers of the Simulator at {SIM_WALKERS} "
+        f"after {fl.dispatches} dispatches: {same}")
+    if r.violation is not None or not same or fl.dispatches < 2:
+        fail("phase 15d: the unsteered fleet's walks")
+    argv = [sim_cfg()] + SIM_ARGS
+    argv[argv.index("--simulate") + 1] = str(SIM_FLEET_BEHAVIORS)
+    argv[argv.index("--walkers") + 1] = str(n)
+    code, _f, rs, out, launches, _w, _p = sim_cli(
+        "phase 15d: --fleet --steer 1.5 --fault-weights "
+        "Restart=2,DropMessage=0.5", argv + [
+            "--fleet", "--steer", "1.5", "--fault-weights",
+            "Restart=2,DropMessage=0.5"])
+    m = re.search(r"Fleet: 1 devices x (\d+) walkers, steer tau=1.5; "
+                  r"action-coverage entropy ([0-9.]+)", out)
+    say(f"phase 15d: steered entropy {rs.coverage_entropy:.4f} against "
+        f"{r.coverage_entropy:.4f} unsteered; coverage {rs.coverage}")
+    if code != 0 or not m or int(m.group(1)) != n \
+            or rs.coverage_entropy <= r.coverage_entropy \
+            or "held on" not in out:
+        fail(f"phase 15d: {out[-600:]}")
+    results["launches_phase15d_fleet"] = launches
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device visible to torch", file=sys.stderr)
@@ -1740,7 +2003,8 @@ def main() -> int:
               file=sys.stderr)
         return 2
     phases = [phase1, phase2, phase3, phase4, phase5, phase6, phase7,
-              phase8, phase9, phase10, phase11, phase12, phase13, phase14]
+              phase8, phase9, phase10, phase11, phase12, phase13, phase14,
+              phase15]
     t_all = time.monotonic()
     card = phase0()
     results = {}
@@ -1774,7 +2038,8 @@ def main() -> int:
                 for path in ("phase3_host", "phase4", "phase5",
                              "phase6_sym", "phase6", "phase7", "phase9",
                              "phase10", "phase12", "phase13a", "phase13b",
-                             "phase14a", "phase14b_campaign")},
+                             "phase14a", "phase14b_campaign", "phase15",
+                             "phase15d_fleet")},
             "audit_launches": {
                 "phase10": results["audit_launches_phase10"][name]},
             "mismatches": r["mismatches"],

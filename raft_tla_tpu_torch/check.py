@@ -31,6 +31,12 @@ pure-Python oracle).  ``--stats`` (one progress line per segment),
 with ``--phase-timers`` and ``--trace``; obs/) need ``device`` or
 ``ddd``.  ``--emit-tlc DIR`` writes the run's TLC twin, then runs it.
 
+``--simulate N`` samples N random behaviors instead (TLC's ``-simulate``;
+``--depth``, ``--walkers``, ``--seed``; simulate.py, one fused-step launch
+a walker step), and ``--fleet`` runs the walker fleet (``--steer``,
+``--fault-weights``; fleet/), on one card: exit 0, 11 or 12 with a trace
+that replays exactly, never a claim of exhaustion.
+
 This port supports them in parity and faithful mode (``--faithful``: the
 history variables carried as state, with the ``*Hist`` invariants), with
 SYMMETRY on the Server and Value axes (``--symmetry`` or the cfg stanza),
@@ -56,12 +62,9 @@ EXIT_ERROR = 1
 # Reference flags that this slice refuses, each with its refusal: the
 # ROADMAP.md queue item, or the spelling here.
 _LATER = "is not ported to raft_tla_tpu_torch yet (ROADMAP.md queue A: {})"
-_SIM = _LATER.format("item 8, simulation and fleets")
 _GATED = _LATER.format("item 7, gated variants")
 _PARALLEL = _LATER.format("item 11, parallel engines")
 _NOT_PORTED = {
-    "--simulate": _SIM, "--depth": _SIM, "--walkers": _SIM, "--seed": _SIM,
-    "--fleet": _SIM, "--steer": _SIM, "--fault-weights": _SIM,
     "--route": _GATED, "--device-dedup": _GATED, "--devdedup": _GATED,
     "--prescan": _GATED, "--sig-prune": _GATED, "--megakernel": _GATED,
     "--ring": _LATER.format("item 9, the paged and streamed engines"),
@@ -219,6 +222,34 @@ def build_argparser() -> argparse.ArgumentParser:
                         "per phase — the ddd engine loses its two-deep "
                         "overlap while this is on. Also RAFT_TLA_"
                         "PHASE_TIMERS=1")
+    p.add_argument("--simulate", type=int, metavar="N", default=None,
+                   help="TLC -simulate analog: instead of exhaustive "
+                        "search, sample N random behaviors (batched "
+                        "walkers on the card, one fused-step launch a "
+                        "walker step), invariants checked on every "
+                        "generated state")
+    p.add_argument("--depth", type=int, default=100,
+                   help="--simulate: maximum behavior length (TLC's "
+                        "-depth; default 100)")
+    p.add_argument("--walkers", type=int, default=1024,
+                   help="--simulate: parallel walkers per device step "
+                        "(with --fleet: the fleet size)")
+    p.add_argument("--seed", type=int, default=0,
+                   help="--simulate: PRNG seed (same seed = same walks, "
+                        "on the card and on the CPU)")
+    p.add_argument("--fleet", action="store_true",
+                   help="--simulate: run the walker fleet (coverage "
+                        "steering, scenario weights, a confidence report; "
+                        "one card)")
+    p.add_argument("--steer", type=float, default=0.0, metavar="TAU",
+                   help="--fleet: coverage-steering temperature — bias "
+                        "lane sampling against over-visited actions by "
+                        "TAU * log1p(visits/mean) (default 0 = off; "
+                        "exact replay preserved)")
+    p.add_argument("--fault-weights", default=None, metavar="F=W,...",
+                   help="--fleet: per-action-family sampling weights, "
+                        "e.g. 'Restart=2,DropMessage=0.5' (sampling "
+                        "policy only; enabledness untouched)")
     for flag in _NOT_PORTED:
         p.add_argument(flag, nargs="?", const=True, default=None,
                        help=argparse.SUPPRESS)
@@ -353,6 +384,9 @@ def run(argv=None) -> tuple:
                 "yet (ROADMAP.md queue A: items 9 and 11, the paged, "
                 f"streamed and parallel engines); only {', '.join(ENGINES)}")
     # The reference's engine gates (its check.main), with its exit code 2.
+    if args.view and args.simulate:
+        p.error("--view does not compose with --simulate (random walks "
+                "replay concrete states; a view only folds dedup keys)")
     if (args.checkpoint or args.resume) and \
             args.engine not in _DEVICE_ENGINES:
         p.error(f"--checkpoint/--resume require a device-class engine "
@@ -402,6 +436,14 @@ def run(argv=None) -> tuple:
     except (OSError, ValueError, NotImplementedError) as e:
         print(f"Error: {e}", file=sys.stderr)
         return EXIT_ERROR, None, None
+    if args.fleet and args.simulate is None:
+        p.error("--fleet requires --simulate N (fleets are a "
+                "simulation-mode engine)")
+    if args.steer and not args.fleet:
+        p.error("--steer requires --fleet (coverage steering lives in "
+                "the sharded fleet engine)")
+    if args.fault_weights and not args.fleet:
+        p.error("--fault-weights requires --fleet")
     if not args.no_lint and lint(config, args.lint) != EXIT_OK:
         return EXIT_ERROR, None, None
 
@@ -437,6 +479,22 @@ def run(argv=None) -> tuple:
             print(f"Error: {e}", file=sys.stderr)
             return EXIT_ERROR, None, None
         print(f"TLC parity artifacts: {tla}, {cfgp}")
+
+    if args.simulate is not None:
+        if props:
+            # Liveness needs the full behavior graph; sampling cannot
+            # check it — reject rather than silently report OK.
+            print(f"Error: PROPERTY {list(props)} cannot be checked in "
+                  "--simulate mode (liveness needs exhaustive search)",
+                  file=sys.stderr)
+            return EXIT_ERROR, None, None
+        sim = None
+        try:
+            sim = make_simulator(args, config)
+            return report_simulation(args, config, sim)
+        except Exception as e:
+            print(f"Error: {e}", file=sys.stderr)
+            return EXIT_ERROR, sim, None
 
     t0 = time.monotonic()
     eng = None
@@ -641,6 +699,79 @@ def make_engine(args, config):
     return DeviceEngine(config, Capacities(n_states=args.cap,
                                            levels=args.levels),
                         device=args.device)
+
+
+def parse_fault_weights(text):
+    """``Fam=W,Fam=W`` -> dict; raises ValueError on malformed cells
+    (family-name validity is checked by the fleet engine, which knows
+    the spec's action table)."""
+    if not text:
+        return None
+    out = {}
+    for cell in text.split(","):
+        fam, eq, w = cell.partition("=")
+        if not eq or not fam.strip():
+            raise ValueError(f"bad --fault-weights cell {cell!r} "
+                             "(want Family=Weight,...)")
+        out[fam.strip()] = float(w)
+    return out
+
+
+def make_simulator(args, config):
+    """The walker engine of parsed CLI arguments: the fleet with
+    ``--fleet``, else the solo simulator."""
+    if args.fleet:
+        from raft_tla_tpu_torch.fleet import FleetSimulator
+        return FleetSimulator(config, walkers=args.walkers,
+                              depth=args.depth, seed=args.seed,
+                              steer_tau=args.steer,
+                              fault_weights=parse_fault_weights(
+                                  args.fault_weights),
+                              device=args.device)
+    from raft_tla_tpu_torch.simulate import Simulator
+    return Simulator(config, walkers=args.walkers, depth=args.depth,
+                     seed=args.seed, device=args.device)
+
+
+def report_simulation(args, config, sim) -> tuple:
+    """TLC -simulate analog (the reference's ``_simulate``): run, print the
+    result lines, ``-> (exit code, simulator, result)``."""
+    from raft_tla_tpu_torch.engine import DEADLOCK
+    # --stats/--events flow through the same RunTelemetry facade as the
+    # exhaustive engines (the events path rides the env set in run()).
+    res = sim.run(args.simulate, on_progress=_stats_cb(args))
+    print(f"{res.n_behaviors} behaviors generated ({res.n_states} states, "
+          f"deepest {res.max_depth_seen}), {res.wall_s:.2f}s "
+          f"({res.states_per_sec:,.0f} states/s).")
+    if args.device == "cuda":
+        from raft_tla_tpu_torch.ops import pallas_step
+        print(f"Kernel launches: step {pallas_step.launches}; host fetches "
+              f"{sim.fetches} over {sim.dispatches} dispatches",
+              file=sys.stderr)
+    if args.fleet:
+        print(f"Fleet: {res.n_devices} devices x "
+              f"{res.walkers // res.n_devices} walkers"
+              + (f", steer tau={res.steer_tau:g}" if res.steer_tau
+                 else "")
+              + f"; action-coverage entropy {res.coverage_entropy:.3f}")
+    if res.violation is None:
+        print("Model checking completed. No error has been found.")
+        print(f"  (simulation: {args.simulate} behaviors of depth "
+              f"<= {args.depth}; not exhaustive)")
+        if args.fleet:
+            per = res.confidence(config.invariants)["per_invariant"]
+            for nm in config.invariants:
+                print(f"  {nm}: held on {per[nm]:,} sampled states")
+        return EXIT_OK, sim, res
+    is_deadlock = res.violation.invariant == DEADLOCK
+    if args.no_trace:
+        print("Error: Deadlock reached." if is_deadlock else
+              f"Error: Invariant {res.violation.invariant} is violated.")
+    else:
+        from raft_tla_tpu_torch.frontend.registry import resolve_model
+        print(resolve_model(config.spec).render_trace(res.violation,
+                                                      config.bounds))
+    return (EXIT_DEADLOCK if is_deadlock else EXIT_VIOLATION), sim, res
 
 
 def _stats_cb(args):

@@ -102,11 +102,9 @@ def test_cli_refuses_what_is_not_ported(tmp_path):
     cfg = write_cfg(tmp_path / "m.cfg")
     # every reference flag the port lacks names its ROADMAP item (--cpu:
     # its spelling here)
-    for flag in ("--simulate", "--prescan", "--sig-prune", "--megakernel",
+    for flag in ("--prescan", "--sig-prune", "--megakernel",
                  "--ring", "--devices", "--seg-chunks", "--reshard-cap",
-                 "--cp-lanes", "--slices", "--compile-cache", "--cpu",
-                 "--depth", "--walkers", "--seed", "--fleet", "--steer",
-                 "--fault-weights"):
+                 "--cp-lanes", "--slices", "--compile-cache", "--cpu"):
         for argv in ([cfg, flag, "x"], [cfg, flag]):
             err = io.StringIO()
             with pytest.raises(SystemExit) as e, redirect_stderr(err):
@@ -164,6 +162,8 @@ def test_running_the_port_leaves_jax_and_the_reference_unloaded(tmp_path):
         "from raft_tla_tpu_torch import check\n"
         f"rc = check.main([{cfg!r}, '--device', 'cpu', '--spec', 'full',"
         " '--max-term', '2', '--max-log', '1', '--max-msgs', '1'])\n"
+        f"rc |= check.main([{cfg!r}, '--device', 'cpu', '--simulate', '50',"
+        " '--walkers', '16', '--depth', '10', '--fleet'])\n"
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.')"
         " or m == 'raft_tla_tpu' or m.startswith('raft_tla_tpu.')]\n"
         "print('LOADED', bad, 'RC', rc)\n")
@@ -171,3 +171,4 @@ def test_running_the_port_leaves_jax_and_the_reference_unloaded(tmp_path):
                        capture_output=True, text=True, timeout=300)
     assert "LOADED [] RC 0" in r.stdout, r.stdout + r.stderr
     assert "distinct states found" in r.stdout
+    assert "behaviors generated" in r.stdout

@@ -238,3 +238,54 @@ def test_graph_exports_on_the_card_equal_the_cpu_ones(cuda, axes):
     if axes:
         cg[0].close()
         gg[0].close()
+
+
+@pytest.mark.parametrize("fleet", [False, True], ids=["simulator", "fleet"])
+def test_walks_through_k1_equal_the_plain_walks(cuda, fleet):
+    """Simulation on the card: the walks (lane histories, walk lengths,
+    rows, counts) through K1 equal those through the plain step on the
+    card; the solo simulator's also equal the CPU's."""
+    from raft_tla_tpu_torch.fleet import FleetSimulator
+    from raft_tla_tpu_torch.simulate import Simulator
+    b = Bounds(n_servers=3, n_values=2, max_term=3, max_log=2, max_msgs=4)
+    cfg = CheckConfig(bounds=b, spec="full", invariants=INVS[:4])
+    kw = dict(walkers=2048, depth=60, steps_per_dispatch=16, seed=7)
+    plain = kernels.build_step(b, "full", INVS[:4])
+    runs = []
+    for dev, step in ((cuda, None), (cuda, plain), ("cpu", None)):
+        if fleet and dev == "cpu":
+            continue        # the weighted draw is float64: same device only
+        cls = FleetSimulator if fleet else Simulator
+        sim = cls(cfg, device=dev, **kw)
+        if step is not None:
+            sim.step_fn = step
+        k1 = pallas_step.launches
+        if fleet:
+            r = sim.run(3000, snapshot_walks=True)
+            runs.append((r.walks[0], r.walks[1], r.n_behaviors, r.n_states,
+                         r.max_depth_seen, sorted(r.coverage.items())))
+        else:
+            w = sim.start()
+            counts = [sim.dispatch(w) for _ in range(2)]
+            runs.append((w.hist.cpu().numpy(), w.hlen.cpu().numpy(),
+                         w.vecs.cpu().numpy(), counts))
+        launched = pallas_step.launches - k1
+        assert launched == (sim.steps * sim.dispatches if step is None
+                            and dev == cuda else 0)
+    for other in runs[1:]:
+        for x, y in zip(runs[0], other):
+            assert np.array_equal(np.asarray(x), np.asarray(y)) \
+                if isinstance(x, np.ndarray) else x == y
+
+
+def test_walker_count_past_the_card_is_refused(cuda):
+    """A walker count whose step outputs cannot fit the card is refused
+    before any launch, with the count that would fit."""
+    from raft_tla_tpu_torch.simulate import Simulator
+    cfg = CheckConfig(bounds=Bounds(n_servers=5, n_values=2, max_term=2,
+                                    max_log=0, max_msgs=2),
+                      spec="election", invariants=("NoTwoLeaders",))
+    before = pallas_step.launches
+    with pytest.raises(ValueError, match="use at most"):
+        Simulator(cfg, walkers=1 << 24, device=cuda)
+    assert pallas_step.launches == before
