@@ -118,7 +118,22 @@ Phases (each prints a line; any failure exits non-zero):
    unsteered its walks equal to those of 15a's first 1,024 walkers, then
    ``--steer 1.5 --fault-weights Restart=2,DropMessage=0.5`` through the
    CLI with a higher coverage entropy.  ``tools/simulate_run.py`` runs
-   elect5 at up to 131,072 walkers.
+   elect5 at up to 131,072 walkers;
+16. the spec frontend: 16a, two-phase commit (``--spec twophase``, the
+   schema step compiled from the action IR) at 7 RMs through ``--engine
+   host --chunk 8192``: the JAX oracle's 296,448 states, diameter 22,
+   2,744,705 transitions and levels, K2 launched once a chunk and neither
+   K1 nor the plain fingerprint nor the plain step ever; then K2 against
+   the plain fingerprint on one chunk's successor rows (W = 24, A = 37);
+   16b, the seeded violations ``~(msgCommit = 1)`` at 3 RMs and
+   ``~any(rmState = 2)`` at 2 RMs (exit 12, traces that replay through
+   ``apply_instance`` and equal the CPU run's); 16c, the IR-compiled Raft
+   step (``ir-full``, keyed by K2) against K1 on 8,192 reachable rows at
+   phase 5's layout without symmetry, and ``ir-election`` through the
+   host engine on phase 3's 3-server election, equal to ``election``;
+   16d, ``--simulate 20000`` on twophase at 7 RMs with 8,192 walkers, the seeded
+   violation found and replayed, and the fleet at 1,024 walkers walking
+   the simulator's walks.  ``tools/twophase_run.py`` runs 8 RMs.
 
 The line before the last is ``{"kernels": [...]}``; the last line is
 ``{"ok": true, "device": {...}}``.  Tolerance everywhere: bit-exact (all
@@ -268,6 +283,23 @@ SIM_ARGS = ["--simulate", "100000", "--depth", "100", "--walkers",
 # walker g walks the same walk in a fleet of any size.
 SIM_FLEET_BEHAVIORS = 50_000
 SIM_FLEET_WALKERS = 1024
+
+# Phase 16: two-phase commit at 7 RMs and the counts of the JAX package's
+# oracle on the CPU (23 s):
+#   JAX_PLATFORMS=cpu python -c "from raft_tla_tpu.frontend import twophase
+#   as tp; r = tp.reference_check(7); print(r.n_states, r.diameter,
+#   r.n_transitions, r.levels)"
+TP_RMS = 7
+TP_EXPECT = (296_448, 22, 2_744_705)
+TP_LEVELS = [1, 15, 105, 462, 1456, 3570, 7259, 12861, 20449, 29372, 37772,
+             42924, 42651, 36785, 27371, 17447, 9436, 4277, 1603, 490, 119,
+             21, 2]
+# 16c: phase 3's 3-server election (t2 l0 m1), its verified count and
+# diameter.
+IR_ELECTION = ((3, 1, 2, 0, 1), 142_538, 31)
+# 16d: every twophase walk runs to the depth bound (terminal states keep
+# self-loops), so 5,000 behaviors at 1,024 walkers are ~8 dispatches.
+TP_FLEET_BEHAVIORS = 5000
 
 
 def fail(msg: str) -> None:
@@ -1994,6 +2026,292 @@ def phase15d(results):
     results["launches_phase15d_fleet"] = launches
 
 
+def tp_cfg(name: str, rms: int, invariant: str) -> str:
+    """A two-phase-commit cfg: ``CONSTANT RM = {r1..r<rms>}``."""
+    WORK.mkdir(parents=True, exist_ok=True)
+    path = WORK / f"{name}.cfg"
+    rm = ", ".join(f"r{i + 1}" for i in range(rms))
+    path.write_text(f"SPECIFICATION Spec\nCONSTANT RM = {{{rm}}}\n"
+                    f"INVARIANT {invariant}\n")
+    return str(path)
+
+
+def tp_reset() -> None:
+    """Every kernel and plain-version count of the frontend's path to 0."""
+    from raft_tla_tpu_torch.frontend import actions
+    from raft_tla_tpu_torch.ops import fingerprint as fpr
+    from raft_tla_tpu_torch.ops import kernels, pallas_fp, pallas_step
+    pallas_step.launches = pallas_fp.launches = kernels.calls = 0
+    fpr.calls = actions.calls = 0
+    torch.cuda.synchronize()
+
+
+def tp_counts() -> dict:
+    from raft_tla_tpu_torch.frontend import actions
+    from raft_tla_tpu_torch.ops import fingerprint as fpr
+    from raft_tla_tpu_torch.ops import kernels, pallas_fp, pallas_step
+    torch.cuda.synchronize()
+    return {"step": pallas_step.launches, "fingerprint": pallas_fp.launches,
+            "plain step": kernels.calls, "plain fingerprint": fpr.calls,
+            "schema step": actions.calls}
+
+
+def tp_replays(trace, rms: int) -> bool:
+    """The trace starts at Init and each step is its label's lane applied
+    by the host interpreter (``twophase.apply_instance``)."""
+    from raft_tla_tpu_torch.config import Bounds
+    from raft_tla_tpu_torch.frontend import twophase as tp
+    b = Bounds(n_servers=rms, n_values=1)
+    lanes = {a.label(): a for a in tp.action_table(b)}
+    cur = tp.init_state(b)
+    if not trace or trace[0] != (None, cur):
+        return False
+    for label, state in trace[1:]:
+        cur = tp.apply_instance(cur, lanes[label], b)
+        if cur != state:
+            return False
+    return True
+
+
+def tp_rows(step, model, b, n: int) -> torch.Tensor:
+    """``n`` distinct reachable rows, from Init level by level through the
+    step on the card."""
+    rows = torch.as_tensor(model.to_vec(model.init_py(b), b),
+                           device=DEV)[None]
+    while len(rows) < n:
+        out = step(rows)
+        rows = torch.unique(torch.cat([rows, out["svecs"][out["valid"]]]),
+                            dim=0)
+    return rows[torch.randperm(len(rows), device=DEV,
+                               generator=torch.Generator(DEV).manual_seed(7)
+                               )[:n]]
+
+
+def phase16(results):
+    """The spec frontend on the card (docstring item 16)."""
+    for fn in (phase16a, phase16b, phase16c, phase16d):
+        t0 = time.monotonic()
+        fn(results) if fn.__code__.co_argcount else fn()
+        say(f"{fn.__name__} took {time.monotonic() - t0:.1f} s")
+
+
+def phase16a(results):
+    from raft_tla_tpu_torch.frontend.registry import resolve_model
+    from raft_tla_tpu_torch.ops import fingerprint as fpr, pallas_fp
+    cfg = tp_cfg("2pc7", TP_RMS, "TCConsistent")
+    tp_reset()
+    t0 = time.monotonic()
+    code, eng, res, out = run_cli([cfg, "--spec", "twophase", "--engine",
+                                   "host", "--chunk", str(MAIN_CHUNK)])
+    torch.cuda.synchronize()
+    wall = time.monotonic() - t0
+    launches = tp_counts()
+    if res is None:
+        fail(f"phase 16a: exit {code}: {out[-600:]}")
+    chunks = sum(-(-n // MAIN_CHUNK) for n in TP_LEVELS)
+    got = (res.n_states, res.diameter, res.n_transitions)
+    say(f"phase 16a: twophase {TP_RMS} RMs, --engine host --chunk "
+        f"{MAIN_CHUNK}: exit {code}, states/diameter/transitions {got} "
+        f"(oracle {TP_EXPECT}), levels equal: {res.levels == TP_LEVELS}; "
+        f"wall {wall:.2f} s with the build ({res.wall_s:.2f} s in the "
+        f"search, {res.n_states / res.wall_s:,.0f} states/s), host dedup "
+        f"loop {eng.dedup_s:.2f} s ({100 * eng.dedup_s / res.wall_s:.1f}% "
+        f"of the search); {chunks} chunks: schema steps "
+        f"{launches['schema step']}, K2 launches {launches['fingerprint']}, "
+        f"K1 launches {launches['step']}, plain fingerprint calls "
+        f"{launches['plain fingerprint']}, plain step calls "
+        f"{launches['plain step']}")
+    if code != 0 or got != TP_EXPECT or res.levels != TP_LEVELS \
+            or "No error has been found" not in out:
+        fail(f"phase 16a: {out[-600:]}")
+    if launches["fingerprint"] != chunks or launches["schema step"] != chunks \
+            or launches["step"] or launches["plain fingerprint"] \
+            or launches["plain step"]:
+        fail(f"phase 16a: K2 did not key every chunk alone: {launches}")
+    results["launches_phase16a"] = launches
+    # K2 on one chunk's successor rows against the plain fingerprint
+    b = eng.config.bounds
+    model = resolve_model("twophase")
+    step = model.build_step(eng.config, DEV)
+    rows = tp_rows(step, model, b, MAIN_CHUNK)
+    out16 = step(rows)
+    W = model.layout(b).width
+    flat = out16["svecs"].reshape(-1, W).contiguous()
+    consts = fpr.torch_constants(W, DEV)
+    hi, lo = pallas_fp.fingerprint_rows(flat)
+    rh, rl = fpr.fingerprint(flat, consts)
+    torch.cuda.synchronize()
+    bad = int(((hi != rh) | (lo != rl)).sum())
+    bad += int(((out16["fp_hi"].reshape(-1) != rh)
+                | (out16["fp_lo"].reshape(-1) != rl)).sum())
+    err = int(torch.maximum((hi.to(torch.int64) - rh).abs(),
+                            (lo.to(torch.int64) - rl).abs()).max())
+    ms, spread = cuda_ms(lambda: pallas_fp.fingerprint_rows(flat), 50)
+    plain_ms, _ = cuda_ms(lambda: fpr.fingerprint(flat, consts), 5,
+                          trials=3, hold=False)
+    step_ms, _ = cuda_ms(lambda: step(rows), 5, trials=3, hold=False)
+    N = flat.shape[0]
+    nbytes = N * W * 4 + 2 * N * 4
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, N * (4 * W + 12) / INT_OPS_PER_S
+    bound = max(t_bytes, t_ops) * 1e3
+    say(f"phase 16a: K2 on one chunk's successor rows [{MAIN_CHUNK} x "
+        f"{out16['svecs'].shape[1]}, {W}] = {N} rows: mismatches {bad} "
+        f"(against the plain fingerprint and the step's own keys); K2 "
+        f"{ms:.4f} ms (spread {spread:.4f}), plain {plain_ms:.3f} ms, bound "
+        f"{bound:.4f} ms; the whole schema step {step_ms:.3f} ms a chunk")
+    if bad:
+        fail("phase 16a: K2 disagrees with the plain fingerprint")
+    results["tp16a"] = {
+        "wall_s": wall, "search_s": res.wall_s,
+        "states_per_sec": res.n_states / res.wall_s,
+        "dedup_s": eng.dedup_s, "k2_rows": N, "k2_width": W,
+        "k2_ms": ms, "k2_plain_ms": plain_ms, "k2_bound_ms": bound,
+        "k2_bound_by": "bytes" if t_bytes >= t_ops else "operations",
+        "k2_max_abs_err": err, "schema_step_ms": step_ms}
+
+
+def phase16b():
+    """The seeded violations on the card and on the CPU: exit 12, the same
+    trace and result lines, the trace replays through apply_instance."""
+    import re
+    cut = r", [0-9.]+s \(.*states/s\)\.$"
+    for rms, inv in ((3, "~(msgCommit = 1)"), (2, "~any(rmState = 2)")):
+        cfg = tp_cfg(f"2pc{rms}v", rms, inv)
+        argv = [cfg, "--spec", "twophase", "--engine", "host"]
+        code, _e, res, out = run_cli(argv)
+        ccode, _c, cres, cout = run_cli(argv + ["--device", "cpu"])
+        lines = [[re.sub(cut, "", ln) for ln in text.splitlines()]
+                 for text in (out, cout)]
+        trace = res.violation.trace if res and res.violation else []
+        same = bool(trace) and cres is not None and cres.violation is not None \
+            and trace == cres.violation.trace and lines[0] == lines[1]
+        replays = tp_replays(trace, rms)
+        say(f"phase 16b: twophase {rms} RMs, INVARIANT {inv}: exit {code} "
+            f"(CPU {ccode}), trace {[lab for lab, _s in trace]}, equal to "
+            f"the CPU run's (trace and lines): {same}, replays through "
+            f"apply_instance: {replays}")
+        if code != 12 or ccode != 12 or not same or not replays:
+            fail(f"phase 16b: {inv}: {out[-600:]}")
+
+
+def phase16c(results):
+    """The IR-compiled Raft step on the card: ``ir-full`` against K1 on
+    reachable rows at phase 5's layout without symmetry, then
+    ``ir-election`` through the host engine against ``election``."""
+    import dataclasses
+    from raft_tla_tpu_torch.config import Bounds, CheckConfig
+    from raft_tla_tpu_torch.engine import Engine
+    from raft_tla_tpu_torch.frontend.registry import resolve_model
+    from raft_tla_tpu_torch.ops import pallas_step
+    invs = tuple(SIM_INVARIANTS)
+    b = Bounds(3, 2, 2, 1, 2)
+    rows = reachable_rows(CheckConfig(bounds=b, spec="full",
+                                      invariants=invs), MAIN_CHUNK)
+    k1 = pallas_step.build_step(b, "full", invs, DEV)
+    ir = resolve_model("ir-full").build_step(
+        CheckConfig(bounds=b, spec="ir-full", invariants=invs), DEV)
+    tp_reset()
+    got = ir(rows)
+    launches = tp_counts()
+    want = k1(rows)
+    bad, err = compare_step(got, want)
+    n_valid = int(want["valid"].sum())
+    ir_ms, _ = cuda_ms(lambda: ir(rows), 3, trials=3, hold=False)
+    k1_ms, _ = cuda_ms(lambda: k1(rows), 20)
+    say(f"phase 16c: ir-full step on the card against K1, {len(rows)} rows "
+        f"[W={rows.shape[1]}, A={want['valid'].shape[1]}], {n_valid} valid "
+        f"lanes: {bad} mismatches (svecs, valid, overflow, fp_hi/fp_lo, "
+        f"inv_ok, con_ok); the IR step's launches: K2 "
+        f"{launches['fingerprint']}, K1 {launches['step']}, plain "
+        f"fingerprint {launches['plain fingerprint']}; IR step {ir_ms:.3f} "
+        f"ms, K1 {k1_ms:.4f} ms")
+    if bad or launches["fingerprint"] != 1 or launches["step"] \
+            or launches["plain fingerprint"]:
+        fail("phase 16c: the IR step differs from K1")
+    key, want_n, want_d = IR_ELECTION
+    cfg = CheckConfig(bounds=Bounds(*key), spec="ir-election",
+                      invariants=("NoTwoLeaders",), chunk=MAIN_CHUNK)
+    runs = {}
+    for spec in ("ir-election", "election"):
+        tp_reset()
+        r = Engine(dataclasses.replace(cfg, spec=spec)).check()
+        runs[spec] = (r, tp_counts())
+    (ri, li), (rh, lh) = runs["ir-election"], runs["election"]
+    same = (ri.n_states, ri.diameter, ri.n_transitions, ri.levels,
+            ri.coverage) == (rh.n_states, rh.diameter, rh.n_transitions,
+                             rh.levels, rh.coverage)
+    say(f"phase 16c: ir-election through the host engine on the card, "
+        f"3s/1v t2 l0 m1: {ri.n_states} states, diameter {ri.diameter}, "
+        f"{ri.n_transitions} transitions in {ri.wall_s:.2f} s (verified "
+        f"{want_n}/{want_d}); equal to election's (K1, {rh.wall_s:.2f} s): "
+        f"{same}; IR steps {li['plain step']}, K2 launches "
+        f"{li['fingerprint']}, K1 launches {li['step']}, plain fingerprint "
+        f"{li['plain fingerprint']}")
+    if not same or (ri.n_states, ri.diameter) != (want_n, want_d) \
+            or li["step"] or li["plain fingerprint"] \
+            or li["fingerprint"] != li["plain step"] or not li["fingerprint"]:
+        fail(f"phase 16c: ir-election: {li} {lh}")
+    results["launches_phase16c"] = li
+    results["tp16c"] = {"mismatches": bad, "max_abs_err": err,
+                        "ir_step_ms": ir_ms, "k1_ms": k1_ms}
+
+
+def phase16d(results):
+    """Twophase simulation on the card: the CLI at 8,192 walkers, the
+    seeded violation replayed, the fleet at 1,024 walkers."""
+    from raft_tla_tpu_torch.config import Bounds, CheckConfig
+    from raft_tla_tpu_torch.fleet import FleetSimulator
+    from raft_tla_tpu_torch.simulate import Simulator
+    argv = ["--spec", "twophase", "--engine", "host", "--simulate", "20000",
+            "--depth", "100", "--walkers", str(SIM_WALKERS), "--seed", "7"]
+    tp_reset()
+    code, sim, res, out = run_cli([tp_cfg("2pc7", TP_RMS, "TCConsistent")]
+                                  + argv)
+    launches = tp_counts()
+    steps = sim.steps * sim.dispatches if sim else 0
+    say(f"phase 16d: twophase {TP_RMS} RMs --simulate 20000 --walkers "
+        f"{SIM_WALKERS}: exit {code}, {res.n_behaviors if res else 0} "
+        f"behaviors, {res.n_states if res else 0} states, "
+        f"{res.states_per_sec if res else 0:,.0f} states/s; schema steps "
+        f"{launches['schema step']} for {steps} walker steps, K2 "
+        f"{launches['fingerprint']}, K1 {launches['step']}, host fetches "
+        f"{sim.fetches if sim else 0} over {sim.dispatches if sim else 0} "
+        f"dispatches")
+    if code != 0 or "No error has been found" not in out \
+            or launches["schema step"] != steps or not steps \
+            or launches["step"] or launches["plain fingerprint"] \
+            or sim.fetches != sim.dispatches:
+        fail(f"phase 16d: {out[-600:]}")
+    results["launches_phase16d"] = launches
+    results["tp16d"] = {"states_per_sec": res.states_per_sec,
+                        "behaviors": res.n_behaviors}
+    code, _s, vres, out = run_cli([tp_cfg("2pc7v", TP_RMS,
+                                          "~(msgCommit = 1)")] + argv)
+    trace = vres.violation.trace if vres and vres.violation else []
+    replays = tp_replays(trace, TP_RMS) and trace[-1][1].msgCommit == 1
+    say(f"phase 16d: seeded violation ~(msgCommit = 1): exit {code}, walk "
+        f"of {len(trace)} states, replays through apply_instance: {replays}")
+    if code != 12 or not replays:
+        fail(f"phase 16d: the seeded violation: {out[-600:]}")
+    config = CheckConfig(bounds=Bounds(n_servers=TP_RMS, n_values=1),
+                         spec="twophase", invariants=("TCConsistent",))
+    fl = FleetSimulator(config, walkers=SIM_FLEET_WALKERS, depth=100, seed=7)
+    r = fl.run(TP_FLEET_BEHAVIORS, snapshot_walks=True)
+    s = Simulator(config, walkers=SIM_WALKERS, depth=100, seed=7)
+    w = s.start()
+    for _ in range(fl.dispatches):
+        s.dispatch(w)
+    n = SIM_FLEET_WALKERS
+    same = np.array_equal(r.walks[0], w.hist[:n].cpu().numpy()) \
+        and np.array_equal(r.walks[1], w.hlen[:n].cpu().numpy())
+    say(f"phase 16d: fleet at {n} walkers: {r.n_behaviors} behaviors, "
+        f"{r.n_states} states, {fl.dispatches} dispatches, entropy "
+        f"{r.coverage_entropy:.4f}; walks equal to those of the first {n} "
+        f"walkers of the Simulator at {SIM_WALKERS}: {same}")
+    if r.violation is not None or not same or fl.dispatches < 2:
+        fail("phase 16d: the fleet's walks")
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device visible to torch", file=sys.stderr)
@@ -2004,7 +2322,7 @@ def main() -> int:
         return 2
     phases = [phase1, phase2, phase3, phase4, phase5, phase6, phase7,
               phase8, phase9, phase10, phase11, phase12, phase13, phase14,
-              phase15]
+              phase15, phase16]
     t_all = time.monotonic()
     card = phase0()
     results = {}
@@ -2013,7 +2331,11 @@ def main() -> int:
         fn(results) if fn.__code__.co_argcount else fn()
         say(f"phase {k} took {time.monotonic() - t0:.1f} s")
     results["step"]["max_abs_err"] = max(results["step"]["max_abs_err"],
-                                         results.get("step_err", 0))
+                                         results.get("step_err", 0),
+                                         results["tp16c"]["max_abs_err"])
+    results["fingerprint"]["max_abs_err"] = max(
+        results["fingerprint"]["max_abs_err"],
+        results["tp16a"]["k2_max_abs_err"])
     # launches: the flagship's run (phase 5) for K1; for K2, which keys
     # Init only on runs without symmetry, the phase-4 run.
     results["step"]["launches"] = results["launches_phase5"]["step"]
@@ -2039,13 +2361,21 @@ def main() -> int:
                              "phase6_sym", "phase6", "phase7", "phase9",
                              "phase10", "phase12", "phase13a", "phase13b",
                              "phase14a", "phase14b_campaign", "phase15",
-                             "phase15d_fleet")},
+                             "phase15d_fleet", "phase16a", "phase16c",
+                             "phase16d")},
             "audit_launches": {
                 "phase10": results["audit_launches_phase10"][name]},
             "mismatches": r["mismatches"],
             "max_abs_err": r["max_abs_err"], "ms": r["ms"],
             "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
             "bound_by": r["bound_by"], "library_ms": None})
+    # K2 on the twophase path (phase 16a): one chunk's successor rows
+    kernels[1]["twophase_rows"] = {
+        k: results["tp16a"][k] for k in ("k2_rows", "k2_width", "k2_ms",
+                                          "k2_plain_ms", "k2_bound_ms",
+                                          "k2_bound_by", "k2_max_abs_err")}
+    # the IR-compiled Raft step against K1 (phase 16c)
+    kernels[0]["ir_step"] = results["tp16c"]
     say(f"total {time.monotonic() - t_all:.1f} s on {card}")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

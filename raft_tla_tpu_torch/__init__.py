@@ -15,8 +15,11 @@ registered VIEWs: cfg -> :class:`CheckConfig` -> a BFS resident on the GPU
 ``utils/native``) while the card expands and filters; the host engine
 (``--engine host``, ``engine.py``) and the oracle (``--engine ref``,
 ``models/refbfs.py``); registry and expression invariants
-(``frontend/predicate.py``); and the TLC twin (``--emit-tlc``,
-``models/tla_export.py``).  Two hand-written Hopper kernels carry the
+(``frontend/predicate.py``); the TLC twin (``--emit-tlc``,
+``models/tla_export.py``); simulation (``simulate.py``, ``fleet/``); and
+the spec frontend (``frontend/``): two-phase commit (``--spec twophase``)
+and the IR-compiled Raft specs, compiled from the action IR into torch ops
+whose rows K2 keys on the card.  Two hand-written Hopper kernels carry the
 engines:
 
 - ``csrc/step.cu`` — the fused frontier step with its history stage, its

@@ -31,6 +31,11 @@ pure-Python oracle).  ``--stats`` (one progress line per segment),
 with ``--phase-timers`` and ``--trace``; obs/) need ``device`` or
 ``ddd``.  ``--emit-tlc DIR`` writes the run's TLC twin, then runs it.
 
+``--spec twophase`` checks the second bundled protocol, two-phase commit
+compiled from the action IR (frontend/twophase.py; the cfg binds ``CONSTANT
+RM``): ``--engine host`` (the schema step on the card, its rows keyed by
+K2) and ``--simulate``/``--fleet``; any other engine is refused with exit 2.
+
 ``--simulate N`` samples N random behaviors instead (TLC's ``-simulate``;
 ``--depth``, ``--walkers``, ``--seed``; simulate.py, one fused-step launch
 a walker step), and ``--fleet`` runs the walker fleet (``--steer``,
@@ -87,8 +92,11 @@ def build_argparser() -> argparse.ArgumentParser:
     p.add_argument("cfg", help="TLC model config; binds Server/Value/"
                                "INVARIANT")
     p.add_argument("--spec", default="full",
-                   choices=("full", "election", "replication"),
-                   help="Next-disjunct subset (default: full)")
+                   choices=("full", "election", "replication", "twophase"),
+                   help="loaded spec: a Raft Next-disjunct subset (default: "
+                        "full raft.tla:454-465) or the bundled twophase "
+                        "(two-phase commit, frontend-compiled; --engine "
+                        "host; cfg binds CONSTANT RM)")
     p.add_argument("--engine", default="device",
                    help="device (the reference's default: the search in "
                         "the card's memory), ddd (delayed duplicate "
@@ -371,6 +379,18 @@ def config_of(args, cfg=None) -> CheckConfig:
         max_elections=args.max_elections)
 
 
+def options_of(args):
+    """The ``serve/jobs.JobOptions`` of parsed CLI arguments (what a
+    model adapter's ``resolve_check_config`` reads)."""
+    from raft_tla_tpu_torch.serve.jobs import JobOptions
+    return JobOptions(
+        spec=args.spec, max_term=args.max_term, max_log=args.max_log,
+        max_msgs=args.max_msgs, max_dup=args.max_dup,
+        faithful=args.faithful, max_elections=args.max_elections,
+        chunk=args.chunk, symmetry=args.symmetry, view=args.view,
+        deadlock=args.deadlock, properties=tuple(args.property))
+
+
 def run(argv=None) -> tuple:
     """The CLI: ``(exit code, engine or None, result or None)``; the
     engine is returned for callers that inspect it after the run."""
@@ -428,14 +448,28 @@ def run(argv=None) -> tuple:
             # utils/prefetch), as in the reference
             os.environ[env] = getattr(args, flag)
     from raft_tla_tpu_torch import __version__
+    from raft_tla_tpu_torch.frontend.registry import resolve_model
     from raft_tla_tpu_torch.utils.cfgparse import load_cfg
+    model = resolve_model(args.spec)
     try:
         cfg = load_cfg(args.cfg)
-        config = config_of(args, cfg)
-        props = properties_of(cfg, args.property)
+        if model.is_raft:
+            config = config_of(args, cfg)
+            props = properties_of(cfg, args.property)
+        else:
+            # non-Raft models own their cfg mapping (the reference's
+            # serve/jobs.resolve_check_config routes them so)
+            config, props = model.resolve_check_config(
+                cfg, options_of(args), path=args.cfg)
     except (OSError, ValueError, NotImplementedError) as e:
         print(f"Error: {e}", file=sys.stderr)
         return EXIT_ERROR, None, None
+    if not model.is_raft and args.engine not in model.engines:
+        p.error(f"--engine {args.engine} does not support spec "
+                f"{args.spec!r} (supported: {', '.join(model.engines)})")
+    if args.simulate is not None and "simulate" not in model.engines:
+        p.error(f"--simulate is not supported by spec {args.spec!r} "
+                f"(supported engines: {', '.join(model.engines)})")
     if args.fleet and args.simulate is None:
         p.error("--fleet requires --simulate N (fleets are a "
                 "simulation-mode engine)")
@@ -448,23 +482,38 @@ def run(argv=None) -> tuple:
         return EXIT_ERROR, None, None
 
     b = config.bounds
-    print(f"raft_tla_tpu_torch {__version__} — exhaustive check of Spec "
-          f"(raft.tla:469), subset: {args.spec}")
-    print(f"Universe: {b.n_servers} servers, {b.n_values} values "
-          f"(from {args.cfg})")
-    print(f"Constraint: MaxTerm={b.max_term} MaxLogLen={b.max_log} "
-          f"MaxMsgs={b.max_msgs} MaxDup={b.max_dup}")
-    if b.history:
-        print("Faithful mode: history variables (elections/allLogs/"
-              f"voterLog/mlog) carried; elections capacity {b.max_elections}")
-    print(f"Invariants: {', '.join(config.invariants) or '(none)'}")
-    if config.symmetry:
-        print(f"Symmetry: {' x '.join(config.symmetry)} permutations "
-              "(counting orbits)")
-    if config.view:
-        print(f"View: {config.view} (counting view-quotient states)")
+    if not model.is_raft:
+        print(f"raft_tla_tpu_torch {__version__} — exhaustive check of spec "
+              f"{args.spec} (frontend-compiled)")
+        print(f"Universe: {b.n_servers} resource managers "
+              f"(from {args.cfg})")
+        print(f"Invariants: {', '.join(config.invariants) or '(none)'}")
+    else:
+        print(f"raft_tla_tpu_torch {__version__} — exhaustive check of Spec "
+              f"(raft.tla:469), subset: {args.spec}")
+        print(f"Universe: {b.n_servers} servers, {b.n_values} values "
+              f"(from {args.cfg})")
+        print(f"Constraint: MaxTerm={b.max_term} MaxLogLen={b.max_log} "
+              f"MaxMsgs={b.max_msgs} MaxDup={b.max_dup}")
+        if b.history:
+            print("Faithful mode: history variables (elections/allLogs/"
+                  f"voterLog/mlog) carried; elections capacity "
+                  f"{b.max_elections}")
+        print(f"Invariants: {', '.join(config.invariants) or '(none)'}")
+        if config.symmetry:
+            print(f"Symmetry: {' x '.join(config.symmetry)} permutations "
+                  "(counting orbits)")
+        if config.view:
+            print(f"View: {config.view} (counting view-quotient states)")
 
-    if args.emit_tlc:
+    if args.emit_tlc and not model.is_raft:
+        try:
+            tla, cfgp = model.emit_tla(args.emit_tlc, b, config.invariants)
+        except (OSError, ValueError) as e:
+            print(f"Error: {e}", file=sys.stderr)
+            return EXIT_ERROR, None, None
+        print(f"TLC parity artifacts: {tla}, {cfgp}")
+    elif args.emit_tlc:
         from raft_tla_tpu_torch.models import tla_export
         try:
             tla, cfgp = tla_export.export(args.emit_tlc, b,
@@ -549,19 +598,21 @@ def run(argv=None) -> tuple:
         print("Error: Deadlock reached." if code == EXIT_DEADLOCK else
               f"Error: Invariant {result.violation.invariant} is violated.")
     else:
-        from raft_tla_tpu_torch.utils.render import render_trace
-        print(render_trace(result.violation, b))
+        print(model.render_trace(result.violation, b))
     return code, eng, result
 
 
 def lint(config, mode: str = "warn") -> int:
-    """The width pass before any step build (the reference's ``--lint``):
-    findings go to stderr under ``speclint (width pass):``; a crash of the
+    """The width pass before any step build (the reference's ``--lint``;
+    for a non-Raft spec its schema check): findings go to stderr under
+    ``speclint (width pass):``; a crash of the
     analyzer is itself a finding; ``strict`` turns any finding into exit
     1."""
-    from raft_tla_tpu_torch.analysis import report, widthcheck
+    from raft_tla_tpu_torch.analysis import report
+    from raft_tla_tpu_torch.frontend.registry import resolve_model
     try:
-        found = widthcheck.check_widths(config.bounds, config.spec)
+        # a Raft spec's width proof; a schema spec's validity gate
+        found = resolve_model(config.spec).check_widths(config.bounds)
     except Exception as e:      # analyzer bug: report, don't block
         found = [report.Finding(
             report.WIDTH, report.ERROR, "lint-internal-error",

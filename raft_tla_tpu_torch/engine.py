@@ -10,12 +10,18 @@ invariants on every distinct state, gating expansion on the
 StateConstraint (violating states are counted and invariant-checked but
 never expanded) and rebuilding a counterexample trace on violation.
 
-Per chunk of the frontier, the fused step (ops/pallas_step.build_step: K1
-on the card, the plain torch step on the CPU) expands, canonicalizes,
-keys and checks every successor; only the small per-lane outputs (keys
-and masks) come back to the host, and the rows of new states alone are
-gathered on the device and copied after them.  Unlike the reference, a
-chunk is not padded to a fixed shape: torch needs no static shapes.
+The engine is model-generic, as the reference's is: it asks the registry
+(frontend/registry.resolve_model) for the spec's adapter and takes its
+layout, action table, step, roots and trace decoding from it.  Per chunk
+of the frontier the adapter's step expands, keys and checks every
+successor: for a Raft spec K1 on the card (ops/pallas_step.build_step) and
+the plain torch step on the CPU; for ``twophase`` and the IR-compiled Raft
+specs the torch ops compiled from the action IR, their rows keyed by K2 on
+the card.  Only the small per-lane outputs (keys and masks) come back to
+the host, and the rows of new states alone are gathered on the device and
+copied after them.  Unlike the reference, a chunk is not padded to a fixed
+shape: torch needs no static shapes.  :attr:`Engine.dedup_s` sums the wall
+of the per-lane host dedup loop (the host's share of a run).
 
 Discovery order is the oracle's (``models/refbfs.py``): frontier states
 in insertion order x action lanes in ``models/spec.action_table`` order.
@@ -101,42 +107,41 @@ class _VecStore:
 
 class Engine:
     """The host engine for one :class:`CheckConfig`; reusable across runs.
-    ``device``: where the step runs (``cuda``, the default, or ``cpu``)."""
+    ``device``: where the step runs (``cuda``, the default, or ``cpu``);
+    ``model``: the spec's adapter (default: the registry's)."""
 
-    def __init__(self, config, device="cuda"):
-        from raft_tla_tpu_torch.models import spec as S
-        from raft_tla_tpu_torch.ops import pallas_step
-        from raft_tla_tpu_torch.ops import state as st
+    def __init__(self, config, device="cuda", model=None):
+        from raft_tla_tpu_torch.frontend.registry import resolve_model
         self.device = torch.device(device)
         if self.device.type == "cuda" and not torch.cuda.is_available():
             raise RuntimeError("device='cuda' asked for, but torch sees no "
                                "GPU; pass device='cpu' to run on the CPU")
         self.config = config
         self.bounds = config.bounds
-        self.lay = st.Layout.of(self.bounds)
-        self.table = S.action_table(self.bounds, config.spec)
+        self.model = model if model is not None \
+            else resolve_model(config.spec)
+        self.lay = self.model.layout(self.bounds)
+        self.table = self.model.action_table(self.bounds)
         self.A = len(self.table)
         self.chunk = config.chunk
-        self.step = pallas_step.build_step(
-            self.bounds, config.spec, tuple(config.invariants), self.device,
-            symmetry=tuple(config.symmetry), view=config.view)
+        self.step = self.model.build_step(config, self.device)
+        self.dedup_s = 0.0
 
     # -- public API ------------------------------------------------------------
 
     def check(self, init_override=None) -> EngineResult:
         """Exhaustively explore; stop at the first invariant violation.
         ``init_override`` mirrors the oracle's hook (``refbfs.check``)."""
-        from raft_tla_tpu_torch.models import interp, invariants as inv_mod
-        from raft_tla_tpu_torch.ops import symmetry as sym
         t0 = time.monotonic()
-        cfg, bounds = self.config, self.bounds
+        cfg, bounds, model = self.config, self.bounds, self.model
         B, A, W = self.chunk, self.A, self.lay.width
         inv_names = list(cfg.invariants)
+        self.dedup_s = 0.0
 
         init_py = init_override if init_override is not None \
-            else interp.init_state(bounds)
-        init_vec = interp.to_vec(init_py, bounds)
-        hi0, lo0 = sym.init_fingerprint(cfg, init_py, init_vec)
+            else model.init_py(bounds)
+        init_vec = model.to_vec(init_py, bounds)
+        hi0, lo0 = model.init_fingerprint(cfg, init_py, init_vec)
 
         seen: set[int] = {hi0 << 32 | lo0}
         store = _VecStore(W)
@@ -148,13 +153,13 @@ class Engine:
         violation: Optional[Violation] = None
 
         for nm in inv_names:
-            if not inv_mod.py_invariant(nm)(init_py, bounds):
+            if not model.py_invariant(nm)(init_py, bounds):
                 violation = self._make_violation(nm, 0, store, parents)
                 break
 
         # frontier: global indices of the states to expand this level
         frontier = [0] if violation is None and \
-            interp.constraint_ok(init_py, bounds) else []
+            model.constraint_ok(init_py, bounds) else []
 
         while frontier and violation is None:
             new_this_level = 0
@@ -198,12 +203,14 @@ class Engine:
                 # as the oracle stops counting at the first dead state.
                 n_transitions += int(flat_valid.sum())
                 new_flat: list[int] = []
+                h0 = time.perf_counter()
                 for fi in np.nonzero(flat_valid)[0].tolist():
                     kk = int(flat_keys[fi])
                     if kk in seen:
                         continue
                     seen.add(kk)
                     new_flat.append(fi)
+                self.dedup_s += time.perf_counter() - h0
                 # Truncate at the first violating new state, as the oracle
                 # stops recording the instant it sees a violation.
                 for t, fi in enumerate(new_flat):
@@ -261,13 +268,10 @@ class Engine:
     def _make_violation(self, inv_name: str, gidx: int, store: _VecStore,
                         parents: list) -> Violation:
         """Walk the parent chain back to Init (TLC's counterexample trace)."""
-        from raft_tla_tpu_torch.models import interp
-        from raft_tla_tpu_torch.ops import state as st
         chain = []
         cur: Optional[int] = gidx
         while cur is not None:
-            py = interp.from_struct(st.unpack(store.get(cur), self.lay),
-                                    self.bounds)
+            py = self.model.from_vec(store.get(cur), self.bounds)
             entry = parents[cur]
             label = self.table[entry[1]].label() if entry else None
             chain.append((label, py))

@@ -26,6 +26,10 @@ FMIX_C1 = 0x85EBCA6B
 FMIX_C2 = 0xC2B2AE35
 _M32 = 0xFFFFFFFF
 
+# Calls of the plain torch fingerprint (chip_smoke.py checks that the
+# schema step on the card never makes one).
+calls = 0
+
 
 def lane_constants(width: int) -> np.ndarray:
     """Per-position odd uint32 multipliers, shape (2, width). Deterministic."""
@@ -92,6 +96,8 @@ def fingerprint(vec: torch.Tensor, consts: torch.Tensor) -> tuple:
     16-bit halves of the constant (terms below 2^49), and the row sum is
     reduced mod 2^32 once, which is exact for any W below 2^14.
     """
+    global calls
+    calls += 1
     w = vec.to(torch.int64) & _M32
     keys = []
     for c, seed in zip(consts, _LANE_SEEDS):

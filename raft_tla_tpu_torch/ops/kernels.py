@@ -539,15 +539,19 @@ def group_instances(table):
     return groups
 
 
-def grouped_dispatch(bounds, s, groups):
+def grouped_dispatch(bounds, s, groups, family_kernels=None):
     """Evaluate the family kernels over grouped static instances:
     ``-> (succs, valids, ovfs)`` lists of ``[B, K, ...]`` / ``[B, K]``.
-    The reference's ``jax.vmap`` over instance parameters is the K axis."""
-    B = s["role"].shape[0]
-    dev = s["role"].device
+    The reference's ``jax.vmap`` over instance parameters is the K axis.
+    ``family_kernels`` (``{family: (kernel, params)}``, e.g. compiled from
+    the IR by ``frontend/actions.compile_kernels``) replaces the
+    hand-written table; same contract, same lane order."""
+    table = _FAMILY_KERNELS if family_kernels is None else family_kernels
+    x0 = next(iter(s.values()))
+    B, dev = x0.shape[0], x0.device
     succs, valids, ovfs = [], [], []
     for fam, instances in groups:
-        kern, params = _FAMILY_KERNELS[fam]
+        kern, params = table[fam]
         K = len(instances)
         args = [torch.tensor([[getattr(a, p) for a in instances]],
                              dtype=I32, device=dev) for p in params]
@@ -589,19 +593,22 @@ def finish_expand(bounds, s, succs, valids, ovfs):
             torch.cat(ovfs, 1))
 
 
-def build_expand(bounds: Bounds, spec: str = "full"):
+def build_expand(bounds: Bounds, spec: str = "full", family_kernels=None):
     """``expand(struct[B, ...]) -> (succs[B, A, ...], valid, overflow)``;
-    the A lanes follow ``models/spec.action_table`` order exactly."""
+    the A lanes follow ``models/spec.action_table`` order exactly.
+    ``family_kernels`` as in :func:`grouped_dispatch`."""
     groups = group_instances(SP.action_table(bounds, spec))
 
     def expand(s):
-        return finish_expand(bounds, s, *grouped_dispatch(bounds, s, groups))
+        return finish_expand(bounds, s, *grouped_dispatch(
+            bounds, s, groups, family_kernels=family_kernels))
 
     return expand
 
 
 def build_step(bounds: Bounds, spec: str = "full", invariants: tuple = (),
-               symmetry: tuple = (), view: str | None = None):
+               symmetry: tuple = (), view: str | None = None,
+               family_kernels=None, keyer=None):
     """The plain fused frontier step: packed rows -> everything the engine
     needs, the same dict as the reference's ``kernels.build_step``.
 
@@ -616,10 +623,14 @@ def build_step(bounds: Bounds, spec: str = "full", invariants: tuple = (),
     ``symmetry`` group (ops/symmetry.build_orbit_fp) when one is set; under
     symmetry invalid lanes get key 0.  ``svecs``, ``inv_ok`` and ``con_ok``
     are always those of the full, unviewed successor (the reference's
-    ``apply_stages``).
+    ``apply_stages``).  ``family_kernels`` swaps the hand-written family
+    kernels for others of the same contract (:func:`grouped_dispatch`);
+    ``keyer(rows int32[N, W]) -> (hi, lo)``, e.g. K2
+    (ops/pallas_fp.fingerprint_rows), replaces the plain fingerprint of the
+    keys without symmetry.
     """
     lay = st.Layout.of(bounds)
-    expand = build_expand(bounds, spec)
+    expand = build_expand(bounds, spec, family_kernels)
     inv_fns = [inv_mod.torch_invariant(nm, bounds) for nm in invariants]
     viewer = views.torch_view(view) if view else None
     consts, orbit = {}, {}
@@ -641,7 +652,11 @@ def build_step(bounds: Bounds, spec: str = "full", invariants: tuple = (),
             fp_lo = torch.where(valid, fp_lo, 0)
         else:
             ksvecs = st.pack(ksuccs) if viewer else svecs
-            fp_hi, fp_lo = fpr.fingerprint(ksvecs, consts[dev])
+            if keyer is None:
+                fp_hi, fp_lo = fpr.fingerprint(ksvecs, consts[dev])
+            else:
+                fp_hi, fp_lo = (k.reshape(valid.shape) for k in keyer(
+                    ksvecs.reshape(-1, lay.width)))
         if inv_fns:
             inv_ok = torch.stack([f(succs) for f in inv_fns], dim=-1)
         else:

@@ -8,11 +8,11 @@ parse, build :class:`Bounds`, run the width pass and the cfg lint
 (analysis/widthcheck, analysis/cfglint), and reject width-unsafe or
 vacuous configs *with the lint findings as the error payload* — all
 before any step build, so a rejected job costs zero device time.
-Resolution is the CLI's own (``check.resolve_check_config``).
-
-Only the Raft specs are ported; the reference's frontend targets
-(``twophase``, ``ir-*``) are ROADMAP.md queue A item 10, and the rest of
-``serve/`` (the executor, scheduler, pool and daemon) is item 12.
+Resolution is the CLI's own (``check.resolve_check_config``) for a Raft
+spec; a non-Raft spec (``twophase``) maps its cfg through its model
+adapter (frontend/registry.py), whose schema check plays the width pass's
+role.  The rest of ``serve/`` (the executor, scheduler, pool and daemon)
+is ROADMAP.md queue A item 12.
 """
 
 from __future__ import annotations
@@ -49,38 +49,19 @@ class JobOptions:
     #                                 seconds (budget-exceeded record)
 
 
-_RAFT_SPECS = ("full", "election", "replication")
-# The reference's other spec names: its frontend/ compile targets.
-_FRONTEND_SPECS = ("raft", "twophase") + tuple(f"ir-{s}" for s in _RAFT_SPECS)
-
-
-def resolve_spec(spec: str) -> str:
-    """The Raft subset of a spec name; raises ValueError with the
-    reference's did-you-mean for an unknown name, and names ROADMAP.md
-    queue A item 10 for the reference's frontend targets."""
-    if spec in _RAFT_SPECS:
-        return spec
-    if spec in _FRONTEND_SPECS:
-        raise ValueError(
-            f"spec {spec!r} is not ported to raft_tla_tpu_torch yet "
-            "(ROADMAP.md queue A: item 10, the frontend/ compile targets); "
-            f"ported: {', '.join(_RAFT_SPECS)}")
-    known = _RAFT_SPECS + _FRONTEND_SPECS
-    hints = cfgparse.suggest(spec, known)
-    hint_txt = f" (did you mean: {', '.join(hints)}?)" if hints else ""
-    raise ValueError(
-        f"unknown spec {spec!r}{hint_txt}; known: "
-        f"{', '.join(sorted(known))}")
-
-
 def resolve_check_config(cfg: TLCConfig, opts: JobOptions,
                          path: str | None = None):
-    """cfg + options -> ``(CheckConfig, properties)``; raises ValueError.
-    The one code path is the CLI's (``check.resolve_check_config`` and
-    ``check.properties_of``)."""
+    """cfg + options -> ``(CheckConfig, properties)``; raises ValueError
+    (an unknown spec name with the registry's did-you-mean).  The one code
+    path is the CLI's (``check.resolve_check_config`` and
+    ``check.properties_of``); a non-Raft model maps the cfg itself."""
     from raft_tla_tpu_torch import check
+    from raft_tla_tpu_torch.frontend.registry import resolve_model
+    model = resolve_model(opts.spec)
+    if not model.is_raft:
+        return model.resolve_check_config(cfg, opts, path)
     config = check.resolve_check_config(
-        cfg, spec=resolve_spec(opts.spec), max_term=opts.max_term,
+        cfg, spec=opts.spec, max_term=opts.max_term,
         max_log=opts.max_log, max_msgs=opts.max_msgs,
         max_dup=opts.max_dup, chunk=opts.chunk, deadlock=opts.deadlock,
         symmetry=opts.symmetry, view=opts.view, path=path,
@@ -180,6 +161,7 @@ def admit(job: CheckJob) -> Admission:
     resolve-time error.  The returned findings are the error payload.
     """
     from raft_tla_tpu_torch.analysis import cfglint, widthcheck
+    from raft_tla_tpu_torch.frontend.registry import resolve_model
 
     opts = job.options
     # Budget first: a zero/negative/non-numeric wall_s is a client error
@@ -195,7 +177,7 @@ def admit(job: CheckJob) -> Admission:
     # Spec name next: an unknown spec must be a lint-style finding, not
     # a traceback out of the queue worker.
     try:
-        sub = resolve_spec(opts.spec)
+        model = resolve_model(opts.spec)
     except ValueError as e:
         f = _report.Finding(_report.CFG, _report.ERROR, "spec-unknown",
                             str(e), field=opts.spec)
@@ -208,6 +190,23 @@ def admit(job: CheckJob) -> Admission:
                             str(e), file=job.cfg_path)
         return Admission(job, False, [f], reason="cfg-unreadable")
 
+    if not model.is_raft:
+        # Non-Raft admission: the model maps the cfg itself, then its
+        # schema validity gate plays the width-proof role.
+        try:
+            config, props = model.resolve_check_config(
+                cfg, opts, path=job.cfg_path)
+        except ValueError as e:
+            f = _report.Finding(_report.CFG, _report.ERROR,
+                                "resolve-failed", str(e), file=job.cfg_path)
+            return Admission(job, False, [f], reason="cfg-invalid")
+        findings = list(model.check_widths(config.bounds))
+        if _report.has_errors(findings):
+            return Admission(job, False, findings, reason="width-unsafe")
+        return Admission(job, True, findings, config=config,
+                         properties=props)
+
+    sub = model.sub
     try:
         bounds = Bounds(
             n_servers=len(cfg.server_names()),

@@ -167,10 +167,16 @@ def test_admit_and_cfglint_match_reference(tmp_path):
         "too-many-servers": "width-unsafe", "bound-constant": None,
         "view-symmetry": None, "unknown-spec": "spec-unknown",
         "budget": "budget-invalid"}
-    # the reference's frontend targets: a spec-unknown naming ROADMAP item 10
-    adm = jobs.admit(jobs.CheckJob.from_dict(
-        {"id": "tp", "cfg": grid[0][1], "spec": "twophase"}))
-    assert adm.reason == "spec-unknown" and "item 10" in adm.findings_text()[0]
+    # the reference's frontend targets, admitted or refused as it does:
+    # the IR-compiled Raft on a Raft cfg, and twophase, whose adapter
+    # refuses the Raft invariant
+    for spec, reason in (("ir-election", None), ("twophase", "cfg-invalid")):
+        d = {"id": spec, "cfg": grid[0][1], "spec": spec, **TOY_OPTS}
+        got, want = jobs.admit(jobs.CheckJob.from_dict(d)), \
+            jjobs.admit(jjobs.CheckJob.from_dict(d))
+        assert (got.admitted, got.reason, got.findings_text()) == \
+            (want.admitted, want.reason, want.findings_text()), spec
+        assert got.reason == reason
 
 
 def test_child_argv_and_one_card_mesh(tmp_path):

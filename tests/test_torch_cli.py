@@ -157,13 +157,24 @@ def test_port_sources_import_neither_jax_nor_the_reference():
 
 def test_running_the_port_leaves_jax_and_the_reference_unloaded(tmp_path):
     cfg = write_cfg(tmp_path / "m.cfg", servers="s1")
+    tpc = tmp_path / "2pc.cfg"
+    tpc.write_text("SPECIFICATION Spec\nCONSTANT RM = {r1, r2}\n"
+                   "INVARIANT TCConsistent\n")
     code = (
         "import sys\n"
         "from raft_tla_tpu_torch import check\n"
+        "from raft_tla_tpu_torch.config import Bounds, CheckConfig\n"
+        "from raft_tla_tpu_torch.engine import Engine\n"
         f"rc = check.main([{cfg!r}, '--device', 'cpu', '--spec', 'full',"
         " '--max-term', '2', '--max-log', '1', '--max-msgs', '1'])\n"
         f"rc |= check.main([{cfg!r}, '--device', 'cpu', '--simulate', '50',"
         " '--walkers', '16', '--depth', '10', '--fleet'])\n"
+        f"rc |= check.main([{str(tpc)!r}, '--device', 'cpu', '--spec',"
+        " 'twophase', '--engine', 'host', '--emit-tlc',"
+        f" {str(tmp_path / 'tlc')!r}])\n"
+        "Engine(CheckConfig(bounds=Bounds(n_servers=1, n_values=1,"
+        " max_term=2, max_log=0, max_msgs=1), spec='ir-election'),"
+        " device='cpu').check()\n"
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.')"
         " or m == 'raft_tla_tpu' or m.startswith('raft_tla_tpu.')]\n"
         "print('LOADED', bad, 'RC', rc)\n")
@@ -172,3 +183,4 @@ def test_running_the_port_leaves_jax_and_the_reference_unloaded(tmp_path):
     assert "LOADED [] RC 0" in r.stdout, r.stdout + r.stderr
     assert "distinct states found" in r.stdout
     assert "behaviors generated" in r.stdout
+    assert "exhaustive check of spec twophase" in r.stdout

@@ -289,3 +289,39 @@ def test_walker_count_past_the_card_is_refused(cuda):
     with pytest.raises(ValueError, match="use at most"):
         Simulator(cfg, walkers=1 << 24, device=cuda)
     assert pallas_step.launches == before
+
+
+def test_schema_and_ir_steps_on_the_card_equal_the_cpu_ones(cuda):
+    """The twophase schema step (4 RMs) and the ``ir-election`` step on the
+    card against their CPU runs on the same rows: every output, the keys
+    from K2 (one launch a call) and never from the plain fingerprint; then
+    twophase through the host engine on the card, the oracle's counts."""
+    from raft_tla_tpu_torch.engine import Engine
+    from raft_tla_tpu_torch.frontend import registry, twophase as tp
+    cases = [("twophase", Bounds(n_servers=4, n_values=1),
+              ("TCConsistent", "count(rmState = 2) <= 1")),
+             ("ir-election", Bounds(n_servers=3, n_values=1, max_term=2,
+                                    max_log=0, max_msgs=2), INVS[:3])]
+    for spec, b, invs in cases:
+        cfg = CheckConfig(bounds=b, spec=spec, invariants=invs, chunk=256)
+        model = registry.resolve_model(spec)
+        cpu_step = model.build_step(cfg, "cpu")
+        rows = torch.as_tensor(model.to_vec(model.init_py(b), b))[None]
+        for _ in range(5):
+            out = cpu_step(rows)
+            nxt = torch.unique(out["svecs"][out["valid"]], dim=0)
+            rows = torch.cat([rows, nxt])[-2048:]
+        k2, plain = pallas_fp.launches, fpr.calls
+        got = model.build_step(cfg, cuda)(rows.to(cuda))
+        assert pallas_fp.launches == k2 + 1 and fpr.calls == plain
+        want = cpu_step(rows)
+        for k, v in want.items():
+            assert torch.equal(got[k].cpu(), v), (spec, k)
+    k1, k2 = pallas_step.launches, pallas_fp.launches
+    res = Engine(CheckConfig(bounds=Bounds(n_servers=4, n_values=1),
+                             spec="twophase", invariants=("TCConsistent",),
+                             chunk=256)).check()
+    ref = tp.reference_check(4)
+    assert (res.n_states, res.diameter, res.n_transitions, res.levels) == \
+        (ref.n_states, ref.diameter, ref.n_transitions, ref.levels)
+    assert pallas_step.launches == k1 and pallas_fp.launches > k2

@@ -4,9 +4,10 @@ The plain batched orbit key (``raft_tla_tpu_torch.ops.symmetry
 .build_orbit_fp``), which K1's orbit stage (``csrc/step.cu``) is held to on
 the card, is compared with the reference's ``build_orbit_fp`` (its scan) and
 ``orbit_fingerprint`` (one state, NumPy); the host key of the initial state
-with ``init_fingerprint`` (the plain step with ``symmetry``/``view``:
-``test_torch_symmetry_step.py``).  Inputs are reachable states of the
-reference interpreter.  Tolerance: bit-exact (uint32 key bits).
+is in ``test_torch_symmetry_init.py`` and the plain step with
+``symmetry``/``view`` in ``test_torch_symmetry_step.py``.  Inputs are
+reachable states of the reference interpreter.  Tolerance: bit-exact
+(uint32 key bits).
 """
 
 import numpy as np
@@ -16,17 +17,15 @@ import torch
 import jax
 import jax.numpy as jnp
 
-from raft_tla_tpu.config import Bounds as JBounds, CheckConfig as JConfig
+from raft_tla_tpu.config import Bounds as JBounds
 from raft_tla_tpu.models import interp as jinterp
-from raft_tla_tpu.models import spec as JS
 from raft_tla_tpu.models import views as jviews
 from raft_tla_tpu.ops import fingerprint as jfpr
-from raft_tla_tpu.ops import msgbits as jmb
 from raft_tla_tpu.ops import state as jst
 from raft_tla_tpu.ops import symmetry as jsym
 
-from raft_tla_tpu_torch.config import Bounds, CheckConfig
-from raft_tla_tpu_torch.models import interp, views
+from raft_tla_tpu_torch.config import Bounds
+from raft_tla_tpu_torch.models import views
 from raft_tla_tpu_torch.ops import fingerprint as fpr
 from raft_tla_tpu_torch.ops import state as st
 from raft_tla_tpu_torch.ops import symmetry as sym
@@ -102,34 +101,3 @@ def test_plain_orbit_key_matches_jax(name):
             assert (int(jh), int(jl)) == (int(want[0][r]), int(want[1][r]))
             assert sym.orbit_fingerprint(one, b, hconsts, axes) == \
                 (int(jh), int(jl))
-
-
-@pytest.mark.parametrize("kw,axes,view", [
-    (FULL3, ("Server",), None),
-    (FULL3, ("Server", "Value"), "deadvotes"),
-    (FULL3, ("Value",), None),
-    (ELECT2, (), "deadvotes"),
-    (ELECT2, (), None),
-])
-def test_init_fingerprint_matches_jax(kw, axes, view):
-    """The host key of Init and of a crafted start state (a candidate with
-    vote sets, a message in flight)."""
-    jb = JBounds(**kw)
-    jcfg = JConfig(bounds=jb, spec="full", invariants=(), symmetry=axes,
-                   view=view)
-    cfg = CheckConfig(bounds=Bounds(**kw), spec="full", invariants=(),
-                      symmetry=axes, view=view)
-    n = jb.n_servers
-    crafted = jinterp.init_state(jb)._replace(
-        role=(JS.FOLLOWER,) * (n - 1) + (JS.CANDIDATE,),
-        term=(2,) * n, votedFor=(0,) * (n - 1) + (n,),
-        vResp=(1,) + (0,) * (n - 2) + (0b11,),
-        vGrant=(1,) + (0,) * (n - 2) + (0b10,),
-        msgs=((jmb.rv_response(2, 1, 0, n - 1), 1),))
-    for js in (jinterp.init_state(jb), crafted):
-        ps = interp.PyState(**{f: getattr(js, f)
-                               for f in interp.PyState.__dataclass_fields__})
-        want = tuple(int(x) for x in jsym.init_fingerprint(
-            jcfg, js, jinterp.to_vec(js, jb)))
-        assert sym.init_fingerprint(cfg, ps, interp.to_vec(ps, cfg.bounds)) \
-            == want
