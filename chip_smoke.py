@@ -133,7 +133,20 @@ Phases (each prints a line; any failure exits non-zero):
    host engine on phase 3's 3-server election, equal to ``election``;
    16d, ``--simulate 20000`` on twophase at 7 RMs with 8,192 walkers, the seeded
    violation found and replayed, and the fleet at 1,024 walkers walking
-   the simulator's walks.  ``tools/twophase_run.py`` runs 8 RMs.
+   the simulator's walks.  ``tools/twophase_run.py`` runs 8 RMs;
+17. the gated step variants: 17a, K1's prescan, sig-prune and both orbit
+   scans against K1's full scan and against their plain versions on
+   reachable rows at |G| = 6 (phase 5's layout), 12 (faithful, Server x
+   Value) and 120 (elect5's layout), with K1's time per variant, its
+   counters (pairs whose scan the prescan skipped, group elements keyed,
+   probes) and its occupancy per variant at phases 5's and 12's layouts;
+   17b, phase 10's universe through ``--engine ddd --route K
+   --device-dedup hash --prescan on``: phase 4's counts; 17c, phase 3's
+   3-server election under SYMMETRY Server through ``--engine ddd --route
+   K --device-dedup sort --prescan on --sig-prune on``: 23,902 orbits,
+   diameter 31, 40,119 transitions, K1 launched in its "both" variant on
+   every chunk.  ``tools/gates_run.py`` times the variants, the routed
+   step and the device set on the flagship and elect5.
 
 The line before the last is ``{"kernels": [...]}``; the last line is
 ``{"ok": true, "device": {...}}``.  Tolerance everywhere: bit-exact (all
@@ -300,6 +313,26 @@ IR_ELECTION = ((3, 1, 2, 0, 1), 142_538, 31)
 # 16d: every twophase walk runs to the depth bound (terminal states keep
 # self-loops), so 5,000 behaviors at 1,024 walkers are ~8 dispatches.
 TP_FLEET_BEHAVIORS = 5000
+
+# Phase 17: the gated variants.  17a's cases (name, layout key, spec,
+# invariants, symmetry, rows); 17b and 17c route a chunk's enabled lanes
+# into half its lanes (phase 10's universe streams ~6% of them on
+# average); 17c's universe and the counts of the JAX package's DDDEngine
+# under the same gates on the CPU (tests/test_torch_gates_cli.py).
+P17_CASES = (
+    ("full 3s/2v t2 l1 m2, Server", (3, 2, 2, 1, 2), "full",
+     ("NoTwoLeaders", "LogMatching", "CommittedWithinLog",
+      "LeaderCompleteness", "NaiveNoTwoLeaders"), ("Server",), MAIN_CHUNK),
+    ("faithful full 3s/2v t2 l1 m2, Server x Value", (3, 2, 2, 1, 2, 6),
+     "full", tuple(INV7.split()), ("Server", "Value"), 2048),
+    ("election 5s/2v t2 l0 m2, Server", (5, 2, 2, 0, 2), "election",
+     ("NoTwoLeaders",), ("Server",), 1024),
+)
+P17_ROUTE_SHARE = 2
+# The step and engine gates the CLI sets process-wide (drive restores them).
+GATE_ENVS = ("RAFT_TLA_PRESCAN", "RAFT_TLA_SIGPRUNE", "RAFT_TLA_MEGAKERNEL",
+             "RAFT_TLA_DEVDEDUP")
+P17C_EXPECT = (23_902, 31, 40_119)
 
 
 def fail(msg: str) -> None:
@@ -561,7 +594,7 @@ def phase1(results):
         bad, err = compare_step(out, ref)
         B, A, W = out["svecs"].shape
         P, Q = sym.group_sizes(b, axes)
-        reps = 20 if P * Q <= 24 else 3
+        reps = 10 if P * Q <= 24 else 3
         ms, spread = cuda_ms(lambda: k1(rows), reps)
         host = host_ms(lambda: k1(rows), reps)
         plain_ms, _ = cuda_ms(lambda: plain(rows), 1 if P * Q > 24 else 2,
@@ -882,6 +915,7 @@ def other_engines(rows, results) -> None:
         and (got.n_states, got.levels, got.n_transitions) == \
         (want.n_states, want.levels, want.n_transitions)
     launches = {"step": pallas_step.launches,
+                "step_by_variant": dict(pallas_step.launches_by),
                 "fingerprint": pallas_fp.launches,
                 "plain step": kernels.calls}
     say(f"phase 3: seeded NaiveNoTwoLeaders violation, --engine host on "
@@ -954,16 +988,27 @@ def drive(argv, label: str, err=None) -> tuple:
     from raft_tla_tpu_torch.ops import kernels, pallas_fp, pallas_step
     from raft_tla_tpu_torch.ops import symmetry as sym
     pallas_step.launches = 0
+    pallas_step.launches_by = dict.fromkeys(pallas_step.VARIANTS, 0)
     pallas_fp.launches = 0
     sym.plain_calls = 0
     kernels.calls = 0
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
+    # the CLI sets its gates process-wide; the next run starts without them
+    gates = {k: os.environ.get(k) for k in GATE_ENVS}
     t0 = time.monotonic()
-    code, eng, res, out = run_cli(argv, err)
-    torch.cuda.synchronize()
+    try:
+        code, eng, res, out = run_cli(argv, err)
+        torch.cuda.synchronize()
+    finally:
+        for k, v in gates.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
     wall = time.monotonic() - t0
     launches = {"step": pallas_step.launches,
+                "step_by_variant": dict(pallas_step.launches_by),
                 "fingerprint": pallas_fp.launches,
                 "plain orbit key": sym.plain_calls,
                 "plain step": kernels.calls}
@@ -1616,6 +1661,7 @@ def p14_run(args, config, timed: bool) -> tuple:
         for k in gates:
             os.environ.pop(k, None)
     launches = {"step": pallas_step.launches,
+                "step_by_variant": dict(pallas_step.launches_by),
                 "fingerprint": pallas_fp.launches,
                 "plain step": kernels.calls}
     if launches["step"] != eng.stats["chunks"] or launches["plain step"]:
@@ -1824,6 +1870,7 @@ def sim_cli(label: str, argv: list) -> tuple:
     code, sim, res, out = run_cli(argv, err)
     wall = time.monotonic() - t0
     launches = {"step": pallas_step.launches,
+                "step_by_variant": dict(pallas_step.launches_by),
                 "fingerprint": pallas_fp.launches,
                 "plain step": kernels.calls}
     peak = torch.cuda.max_memory_allocated() / 2**30
@@ -2312,6 +2359,140 @@ def phase16d(results):
         fail("phase 16d: the fleet's walks")
 
 
+def phase17(results):
+    """The gated step variants."""
+    for fn in (phase17a, phase17b, phase17c):
+        t0 = time.monotonic()
+        fn(results)
+        say(f"{fn.__name__} took {time.monotonic() - t0:.1f} s")
+
+
+def phase17a(results):
+    """K1's orbit-scan variants against its full scan and their plain
+    versions; their times, counters and occupancy."""
+    from raft_tla_tpu_torch.config import CheckConfig
+    from raft_tla_tpu_torch.ops import kernels, pallas_step
+    from raft_tla_tpu_torch.ops import state as st
+    from raft_tla_tpu_torch.ops import symmetry as sym
+    dev = torch.device("cuda")
+    flags = {"full": (False, False), "prescan": (True, False),
+             "sigprune": (False, True), "both": (True, True)}
+    results["k1_variants"] = []
+    for name, key, spec, invs, axes, n in P17_CASES:
+        b = bounds_of(key)
+        rows = reachable_rows(CheckConfig(bounds=b, spec=spec,
+                                          invariants=invs, chunk=1024), n)
+        P, Q = sym.group_sizes(b, axes)
+        steps = {v: pallas_step.build_step(b, spec, invs, dev, axes,
+                                           prescan=pre, sigprune=sp,
+                                           count=True)
+                 for v, (pre, sp) in flags.items()}
+        full = steps["full"](rows)
+        reps = 10 if P * Q <= 24 else 3
+        row = dict(name=name, group=P * Q, rows=rows.shape[0])
+        for v, (pre, sp) in flags.items():
+            steps[v].stats.zero_()
+            out = steps[v](rows)
+            stats = steps[v].stats.tolist()
+            plain = kernels.build_step(b, spec, invs, axes, prescan=pre,
+                                       sigprune=sp)(rows)
+            torch.cuda.synchronize()
+            bad_f, _ = compare_step(out, full)
+            bad_p, err = compare_step(out, plain)
+            pairs, skipped, elements, probes = stats
+            row[v] = dict(mismatches_full=bad_f, mismatches_plain=bad_p,
+                          max_abs_err=err, pairs=pairs,
+                          skipped_share=skipped / max(pairs, 1),
+                          kept_mean=elements / max(pairs - skipped, 1),
+                          probes=probes)
+            if bad_f or bad_p:
+                fail(f"K1 {v} disagrees on {name}: {bad_f} lanes with the "
+                     f"full scan, {bad_p} with the plain {v} step")
+        for v in flags:
+            row[v]["ms"], row[v]["spread"] = cuda_ms(
+                lambda: steps[v](rows), reps)
+        say(f"phase 17a: K1 variants {name}: |G| {P * Q}, rows "
+            f"{rows.shape[0]}, valid pairs {row['full']['pairs']}; " + "; ".join(
+                f"{v} {row[v]['ms']:.4f} ms (spread {row[v]['spread']:.4f}), "
+                f"prescan-skipped {row[v]['skipped_share']:.3f}, elements "
+                f"keyed {row[v]['kept_mean']:.2f} a scanned pair, probes "
+                f"{row[v]['probes']}, mismatches vs full "
+                f"{row[v]['mismatches_full']} vs plain "
+                f"{row[v]['mismatches_plain']}" for v in flags))
+        results["k1_variants"].append(row)
+    for key, axes in (((3, 2, 2, 1, 2), ("Server",)),
+                      ((5, 2, 2, 0, 2), ("Server",))):
+        b = bounds_of(key)
+        spec = "full" if key[0] == 3 else "election"
+        occ = {v: pallas_step.occupancy(b, spec, axes, MAIN_CHUNK, v)
+               for v in flags}
+        say(f"phase 17a: occupancy step W={st.Layout.of(b).width} |G| "
+            f"{sym.group_sizes(b, axes)[0]}: " + ", ".join(
+                f"{v} {blk} blocks ({smem} bytes)"
+                for v, (blk, smem) in occ.items()))
+        results.setdefault("k1_occupancy", {})[str(key)] = occ
+
+
+def phase17b(results):
+    """Phase 10's universe through the routed DDD step, the hash device set
+    and the prescan gate on."""
+    from raft_tla_tpu_torch.models import spec as SP
+    A = len(SP.action_table(bounds_of(tuple(
+        REAL[k] for k in ("servers", "values", "max_term", "max_log",
+                          "max_msgs"))), "full"))
+    K = MAIN_CHUNK * A // P17_ROUTE_SHARE
+    code, eng, res, out, wall, launches = drive(
+        real_argv("--route", str(K), "--device-dedup", "hash",
+                  "--prescan", "on"), "gated DDD run")
+    got = (res.n_states, res.diameter, res.n_transitions)
+    st = eng.stats
+    say(f"phase 17b: full 3s/2v t2 l1 m1 --engine ddd --route {K} "
+        f"--device-dedup hash --prescan on: exit {code}; states {got[0]}, "
+        f"diameter {got[1]}, transitions {got[2]} (expected {REAL_EXPECT}); "
+        f"route_peak {st['route_peak']}, rows exported {st['export_rows']}, "
+        f"device-set hits {st['dev_dedup_hits']}, copied to the host "
+        f"{st['d2h_bytes']} bytes; K1 launches by variant "
+        f"{launches['step_by_variant']}")
+    results["ddd_phase17b"] = report_ddd("phase 17b", eng, res, wall,
+                                         launches)
+    results["ddd_phase17b"].update(route_peak=st["route_peak"],
+                                   export_rows=st["export_rows"],
+                                   dev_dedup_hits=st["dev_dedup_hits"])
+    if code != 0 or got != REAL_EXPECT:
+        fail("the gated DDD run's counts differ from the reference")
+    results["launches_phase17b"] = launches
+
+
+def phase17c(results):
+    """Phase 3's election under SYMMETRY through every gate: K1's both
+    variant, the routed step and the sorted device set."""
+    (servers, values, t, lg, m), _, _ = IR_ELECTION
+    cfg = write_cfg("p17c", servers, values, "NoTwoLeaders", "Server")
+    from raft_tla_tpu_torch.models import spec as SP
+    A = len(SP.action_table(bounds_of((servers, values, t, lg, m)),
+                            "election"))
+    K = MAIN_CHUNK * A // P17_ROUTE_SHARE
+    argv = [cfg, "--spec", "election", "--max-term", str(t), "--max-log",
+            str(lg), "--max-msgs", str(m), "--chunk", str(MAIN_CHUNK),
+            "--engine", "ddd", "--route", str(K), "--device-dedup", "sort",
+            "--prescan", "on", "--sig-prune", "on"]
+    code, eng, res, out, wall, launches = drive(argv, "gated symmetric run")
+    got = (res.n_states, res.diameter, res.n_transitions)
+    say(f"phase 17c: election 3s/1v t2 l0 m1, SYMMETRY Server, --engine ddd "
+        f"--route {K} --device-dedup sort --prescan on --sig-prune on: exit "
+        f"{code}; orbits {got[0]}, diameter {got[1]}, transitions {got[2]} "
+        f"(expected {P17C_EXPECT}); wall {wall:.2f} s; device-set hits "
+        f"{eng.stats['dev_dedup_hits']}; K1 launches by variant "
+        f"{launches['step_by_variant']}")
+    if code != 0 or got != P17C_EXPECT:
+        fail("the gated symmetric run's counts differ from the CPU runs")
+    if launches["step_by_variant"]["both"] != eng.stats["chunks"] or \
+            launches["plain step"] or launches["plain orbit key"]:
+        fail(f"phase 17c: K1's both variant did not run every chunk: "
+             f"{launches}")
+    results["launches_phase17c"] = launches
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device visible to torch", file=sys.stderr)
@@ -2322,7 +2503,7 @@ def main() -> int:
         return 2
     phases = [phase1, phase2, phase3, phase4, phase5, phase6, phase7,
               phase8, phase9, phase10, phase11, phase12, phase13, phase14,
-              phase15, phase16]
+              phase15, phase16, phase17]
     t_all = time.monotonic()
     card = phase0()
     results = {}
@@ -2362,7 +2543,7 @@ def main() -> int:
                              "phase10", "phase12", "phase13a", "phase13b",
                              "phase14a", "phase14b_campaign", "phase15",
                              "phase15d_fleet", "phase16a", "phase16c",
-                             "phase16d")},
+                             "phase16d", "phase17b", "phase17c")},
             "audit_launches": {
                 "phase10": results["audit_launches_phase10"][name]},
             "mismatches": r["mismatches"],
@@ -2376,6 +2557,12 @@ def main() -> int:
                                           "k2_bound_by", "k2_max_abs_err")}
     # the IR-compiled Raft step against K1 (phase 16c)
     kernels[0]["ir_step"] = results["tp16c"]
+    # the orbit-scan variants (phase 17): launches by variant on the gated
+    # paths, and each variant's time and counters at 17a's layouts
+    kernels[0]["launches_by_variant"] = {
+        path: results[f"launches_{path}"]["step_by_variant"]
+        for path in ("phase5", "phase12", "phase17b", "phase17c")}
+    kernels[0]["variants"] = results["k1_variants"]
     say(f"total {time.monotonic() - t_all:.1f} s on {card}")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

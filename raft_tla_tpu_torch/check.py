@@ -23,13 +23,22 @@ ddd`` build it from the DDD engine's store; otherwise the device engine's.
 Four engines: ``--engine device`` (the default: the whole search in the
 card's memory), ``--engine ddd`` (exact dedup on the host, the card expands
 and filters; ``--block``, ``--retention``, ``--keep-levels``,
-``--deadline``, ``--host-dedup``, ``--prefetch``; other engines ignore
-them, as the reference's do), ``--engine host`` (the step per chunk on the
+``--deadline``, ``--host-dedup``, ``--prefetch``, ``--device-dedup``;
+other engines ignore them, as the reference's do, while ``--route K``
+needs it), ``--engine host`` (the step per chunk on the
 card, a fingerprint set on the host) and ``--engine ref`` (the
 pure-Python oracle).  ``--stats`` (one progress line per segment),
 ``--checkpoint``/``--resume`` and the run-event log (``--events PATH``,
 with ``--phase-timers`` and ``--trace``; obs/) need ``device`` or
 ``ddd``.  ``--emit-tlc DIR`` writes the run's TLC twin, then runs it.
+
+The reference's step gates take its values and set its environment
+variables process-wide, read at step construction by every engine:
+``--prescan`` (``RAFT_TLA_PRESCAN``), ``--sig-prune``
+(``RAFT_TLA_SIGPRUNE``) and ``--megakernel`` (``RAFT_TLA_MEGAKERNEL``; on
+the card ``auto`` and ``on`` run K1, the megakernel's counterpart, and
+``off`` is refused; on the CPU every value runs the plain step), and
+``--device-dedup`` (``RAFT_TLA_DEVDEDUP``, read by the DDD engine).
 
 ``--spec twophase`` checks the second bundled protocol, two-phase commit
 compiled from the action IR (frontend/twophase.py; the cfg binds ``CONSTANT
@@ -67,11 +76,8 @@ EXIT_ERROR = 1
 # Reference flags that this slice refuses, each with its refusal: the
 # ROADMAP.md queue item, or the spelling here.
 _LATER = "is not ported to raft_tla_tpu_torch yet (ROADMAP.md queue A: {})"
-_GATED = _LATER.format("item 7, gated variants")
 _PARALLEL = _LATER.format("item 11, parallel engines")
 _NOT_PORTED = {
-    "--route": _GATED, "--device-dedup": _GATED, "--devdedup": _GATED,
-    "--prescan": _GATED, "--sig-prune": _GATED, "--megakernel": _GATED,
     "--ring": _LATER.format("item 9, the paged and streamed engines"),
     "--reshard-to": _PARALLEL, "--reshard-cap": _PARALLEL,
     "--devices": _PARALLEL, "--seg-chunks": _PARALLEL,
@@ -160,6 +166,42 @@ def build_argparser() -> argparse.ArgumentParser:
                    help="--engine ddd: read and upload block k+1 while "
                         "block k expands (sets RAFT_TLA_PREFETCH; auto = on "
                         "iff the host has 2+ cores)")
+    p.add_argument("--route", type=int, default=0, metavar="K",
+                   help="--engine ddd only: EP-routed step with K "
+                        "compacted candidate slots per chunk (the "
+                        "expensive orbit/invariant stages then run on K "
+                        "rows instead of chunk*A; size from the "
+                        "route_peak stat of a dense run; overflow aborts "
+                        "loudly; 0 = dense step)")
+    dedup_choices = ("auto", "on", "off", "hash", "sort")
+    p.add_argument("--devdedup", dest="device_dedup", default=None,
+                   choices=dedup_choices, help=argparse.SUPPRESS)
+    p.add_argument("--device-dedup", default=None, choices=dedup_choices,
+                   help="--engine ddd: an exact set, on the card, of the "
+                        "keys already exported this level; each segment's "
+                        "rows whose key it holds are dropped before the "
+                        "copy to the host (ops/devdedup.py; 'on'/'hash' "
+                        "the open-addressing table, 'sort' the sorted "
+                        "array; --devdedup is the same). Sets "
+                        "RAFT_TLA_DEVDEDUP; auto is off")
+    p.add_argument("--prescan", default=None, choices=("auto", "on", "off"),
+                   help="group each chunk's successors by their raw key "
+                        "and scan the orbit of one per group (the same "
+                        "keys). Sets RAFT_TLA_PRESCAN; auto: on on the "
+                        "CPU, on the card iff |G| >= 120")
+    p.add_argument("--sig-prune", default=None,
+                   choices=("auto", "on", "off"),
+                   help="signature-refinement orbit-scan pruning: scan one "
+                        "group element per coset of each state's verified "
+                        "stabilizer (the same keys; ops/symmetry.py). "
+                        "Sets RAFT_TLA_SIGPRUNE; auto is off")
+    p.add_argument("--megakernel", default=None,
+                   choices=("auto", "on", "off"),
+                   help="the reference's Pallas megakernel gate. Sets "
+                        "RAFT_TLA_MEGAKERNEL; on the card auto and on run "
+                        "K1 (csrc/step.cu, its counterpart) and off is "
+                        "refused; on the CPU every value runs the plain "
+                        "step")
     p.add_argument("--checkpoint", metavar="PATH",
                    help="write the search carry (device) or a DDD snapshot "
                         "here (the reference's formats)")
@@ -407,6 +449,20 @@ def run(argv=None) -> tuple:
     if args.view and args.simulate:
         p.error("--view does not compose with --simulate (random walks "
                 "replay concrete states; a view only folds dedup keys)")
+    if args.route and args.engine != "ddd":
+        p.error(f"--route requires --engine ddd (got {args.engine}); "
+                "the routed step is not built for other engines — "
+                "dropping it silently would run a different program "
+                "than configured")
+    if args.route and args.megakernel == "on":
+        p.error("--megakernel on does not compose with --route (the "
+                "routed step's lane compaction is an XLA scatter between "
+                "the megakernel's fused phases); use --route 0 or leave "
+                "the megakernel gate auto/off")
+    if args.megakernel == "off" and args.device == "cuda" \
+            and args.engine != "ref":          # the oracle builds no step
+        from raft_tla_tpu_torch.ops.pallas_step import MEGAKERNEL_OFF_CUDA
+        p.error(MEGAKERNEL_OFF_CUDA)
     if (args.checkpoint or args.resume) and \
             args.engine not in _DEVICE_ENGINES:
         p.error(f"--checkpoint/--resume require a device-class engine "
@@ -442,10 +498,15 @@ def run(argv=None) -> tuple:
         if args.trace:
             os.environ[ENV_TRACE] = "1"
     for flag, env in (("host_dedup", "RAFT_TLA_HOSTDEDUP"),
-                      ("prefetch", "RAFT_TLA_PREFETCH")):
+                      ("prefetch", "RAFT_TLA_PREFETCH"),
+                      ("device_dedup", "RAFT_TLA_DEVDEDUP"),
+                      ("prescan", "RAFT_TLA_PRESCAN"),
+                      ("sig_prune", "RAFT_TLA_SIGPRUNE"),
+                      ("megakernel", "RAFT_TLA_MEGAKERNEL")):
         if getattr(args, flag) is not None:
-            # resolved once at engine construction (utils/keyset,
-            # utils/prefetch), as in the reference
+            # resolved once at engine or step construction (utils/keyset,
+            # utils/prefetch, ops/devdedup, ops/kernels), as in the
+            # reference: every engine of the invocation reads the same
             os.environ[env] = getattr(args, flag)
     from raft_tla_tpu_torch import __version__
     from raft_tla_tpu_torch.frontend.registry import resolve_model
@@ -741,11 +802,12 @@ def make_engine(args, config):
         table = 1 << max(10, min(28, (2 * args.cap - 1).bit_length()))
         # a segment's buffers hold at least one chunk's worst-case stream
         A = len(S.action_table(config.bounds, config.spec))
-        seg_rows = max(1 << 19, 2 * args.chunk * A)
+        seg_rows = max(1 << 19, 2 * args.chunk * A, args.route)
         return DDDEngine(config, DDDCapacities(
             block=args.block or 1 << 20, table=table, seg_rows=seg_rows,
-            levels=args.levels, retention=args.retention,
-            keep_levels=args.keep_levels), device=args.device)
+            levels=args.levels, route_rows=args.route,
+            retention=args.retention, keep_levels=args.keep_levels),
+            device=args.device)
     from raft_tla_tpu_torch.device_engine import Capacities, DeviceEngine
     return DeviceEngine(config, Capacities(n_states=args.cap,
                                            levels=args.levels),

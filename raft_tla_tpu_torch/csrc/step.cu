@@ -2,7 +2,8 @@
 //
 // Replaces: raft_tla_tpu/ops/pallas_step.py `build_step_megakernel`
 // (:131; kernel body `kernel` at :175, launch `_call` at :184,
-// pl.pallas_call at :194), whole: parity and faithful mode.  The TPU kernel
+// pl.pallas_call at :194), whole: parity and faithful mode, and its three
+// orbit-scan variants (full scan, prescan, sig-prune).  The TPU kernel
 // stages the XLA step's jaxpr over 128-row blocks so that the [B, A, W]
 // candidate block stays in VMEM between stages; this kernel computes the
 // same lanes as the plain torch step (ops/kernels.build_step): unpack, the
@@ -85,6 +86,24 @@
 // part of the fold is shared by the Q value permutations of one server
 // permutation.  The view (deadvotes: vote sets of non-candidates read as
 // 0) is applied as each vote word is read.
+//
+// Orbit-scan variants (the Pallas kernel's three, `variant` bits of the
+// same kernel; ops/kernels.prescan_enabled, sigprune_enabled).  The
+// prescan: each pair's owner takes the raw fingerprint of its canonical
+// successor and claims it in a block-wide shared table (a 64-bit
+// atomicCAS); the first claimant is the group's representative, the
+// others take its key, this round or a later one.  Raw-identical
+// successors are the same state, so any scope of grouping gives the same
+// keys (the reference's _PRESCAN_RUNGS argument).  Skipping a lane alone
+// saves nothing on a warp, so a round is one pair a thread and its
+// representatives are compacted into a list and scanned `split` threads
+// to each by their count.  Sig-prune: per valid lane, exact probes of
+// the server and value transpositions (the image built as the scan
+// builds it, compared word by word with the viewed successor, after a
+// field-by-field necessary test), then the scan skips every group
+// element that is not increasing on each verified pair: one element per
+// coset of the verified stabilizer, the same minimum
+// (ops/symmetry.pruned_orbit_fp).  The two compose.
 //
 // Group tables: the kernel takes only the permutations themselves, P rows
 // of (p[n], inv[n]) and Q rows of q[V], int8 (ops/symmetry.kernel_tables),
@@ -1025,19 +1044,20 @@ __device__ __forceinline__ int map_rank1(const int16_t* rm, int x) {
   return c == 0 ? 0 : __ldg(rm + c - 1) + 1;
 }
 
-// Folds the history fields of g(s) into acc: server permutation `row`
-// (p[N] then inv[N]) then the value permutation's rank map rm (null:
-// identity); the election slots are remapped into registers and re-sorted.
-__device__ __forceinline__ void history_key(const St& s, const int8_t* row,
-                                            const int (&p)[N],
-                                            const int (&inv)[N],
-                                            const int16_t* rm,
-                                            const Consts& cs, RtFp& acc) {
+// The history fields of g(s), word by word into `out` (a fold or a
+// compare, below): server permutation `row` (p[N] then inv[N]) then the
+// value permutation's rank map rm (null: identity); the election slots are
+// remapped into registers and re-sorted.
+template <class Sink>
+__device__ __forceinline__ void history_words(const St& s, const int8_t* row,
+                                              const int (&p)[N],
+                                              const int (&inv)[N],
+                                              const int16_t* rm, Sink& out) {
 #pragma unroll
   for (int k = 0; k < N; ++k)
 #pragma unroll
     for (int m = 0; m < N; ++m)
-      mac(acc, cs, O_VLOG + k * N + m, map_rank1(rm, s.vlog[inv[k]][inv[m]]));
+      out(O_VLOG + k * N + m, map_rank1(rm, s.vlog[inv[k]][inv[m]]));
   if (rm) {  // allLogs: bit r moves to bit rm[r]
     int mask[WA];
 #pragma unroll
@@ -1057,10 +1077,10 @@ __device__ __forceinline__ void history_key(const St& s, const int8_t* row,
       }
     }
 #pragma unroll
-    for (int w = 0; w < WA; ++w) mac(acc, cs, O_ALLLOGS + w, mask[w]);
+    for (int w = 0; w < WA; ++w) out(O_ALLLOGS + w, mask[w]);
   } else {
 #pragma unroll
-    for (int w = 0; w < WA; ++w) mac(acc, cs, O_ALLLOGS + w, s.alllogs[w]);
+    for (int w = 0; w < WA; ++w) out(O_ALLLOGS + w, s.alllogs[w]);
   }
   int et[E], el[E], eg[E], ev[E], evl[E][N];
 #pragma unroll
@@ -1081,126 +1101,318 @@ __device__ __forceinline__ void history_key(const St& s, const int8_t* row,
   sort_elections(et, el, eg, ev, evl);
 #pragma unroll
   for (int e = 0; e < E; ++e) {
-    mac(acc, cs, O_ETERM + e, et[e]);
-    mac(acc, cs, O_ELEADER + e, el[e]);
-    mac(acc, cs, O_ELOG + e, eg[e]);
-    mac(acc, cs, O_EVOTES + e, ev[e]);
+    out(O_ETERM + e, et[e]);
+    out(O_ELEADER + e, el[e]);
+    out(O_ELOG + e, eg[e]);
+    out(O_EVOTES + e, ev[e]);
 #pragma unroll
-    for (int m = 0; m < N; ++m) mac(acc, cs, O_EVLOG + e * N + m, evl[e][m]);
+    for (int m = 0; m < N; ++m) out(O_EVLOG + e * N + m, evl[e][m]);
   }
 }
 #endif
 
+// The two sinks of an image's words.  A fold takes each word into the
+// fingerprint accumulators (the key of a group element); a compare holds
+// each word to the same word of the (viewed) canonical successor, which
+// is how sig-prune's transposition probes test g(s) == s exactly.
+struct FoldSink {
+  const Consts& cs;
+  RtFp acc;
+  __device__ __forceinline__ void operator()(int w, int x) {
+    mac(acc, cs, w, x);
+  }
+};
+
+struct CmpSink {
+  const int* id;  // the canonical successor, unviewed, in its slot
+  int view;
+  bool eq;
+  __device__ __forceinline__ void operator()(int w, int x) {
+    int y = id[w];
+    // w is a compile-time offset after unrolling: the test folds away
+    if (w >= O_VRESP && w < O_VGRANT + N && view == kViewDeadvotes &&
+        id[O_ROLE + (w - O_VRESP) % N] != CANDIDATE)
+      y = 0;
+    eq &= x == y;
+  }
+};
+
+// The server permutation `row` = (p, inv) applied to everything but logVal
+// and the messages' value fields and order: shared by the Q value
+// permutations of one server permutation.  The view (deadvotes) is applied
+// as each vote word is read.
+template <class Sink>
+__device__ __forceinline__ void server_words(const St& s, const int8_t* row,
+                                             const int (&p)[N],
+                                             const int (&inv)[N], int view,
+                                             Sink& out) {
+#pragma unroll
+  for (int k = 0; k < N; ++k) {
+    const int src = inv[k];
+    const int role = s.role[src];
+    out(O_ROLE + k, role);
+    out(O_TERM + k, s.term[src]);
+    const int vf = clampi(s.voted[src], N + 1);
+    out(O_VOTED + k, vf == 0 ? 0 : row[vf - 1] + 1);
+    out(O_COMMIT + k, s.commit[src]);
+    out(O_LOGLEN + k, s.loglen[src]);
+#pragma unroll
+    for (int l = 0; l < L; ++l) out(O_LOGTERM + k * L + l, s.logterm[src][l]);
+    const bool dead = view == kViewDeadvotes && role != CANDIDATE;
+    const int vr = dead ? 0 : s.vresp[src];
+    const int vg = dead ? 0 : s.vgrant[src];
+    int pr = 0, pg = 0;
+#pragma unroll
+    for (int j = 0; j < N; ++j) {
+      pr |= ((vr >> j) & 1) << p[j];
+      pg |= ((vg >> j) & 1) << p[j];
+    }
+    out(O_VRESP + k, pr);
+    out(O_VGRANT + k, pg);
+#pragma unroll
+    for (int m = 0; m < N; ++m) {
+      out(O_NEXT + k * N + m, s.next[src][inv[m]]);
+      out(O_MATCH + k * N + m, s.match[src][inv[m]]);
+    }
+  }
+}
+
+// The messages' hi words with src and dst relabelled by `row` (occupied
+// slots only), before the re-sort.
+__device__ __forceinline__ void relabel_hi(const St& s, const int8_t* row,
+                                           int (&phi)[S]) {
+#pragma unroll
+  for (int k = 0; k < S; ++k) {
+    const int hi = s.mhi[k];
+    const int sx = (hi >> 21) & 15, dx = (hi >> 25) & 15;
+    const int ns = sx < N ? row[sx] : 0, nd = dx < N ? row[dx] : 0;
+    phi[k] = s.mcnt[k] > 0 ? (hi & kHiKeep) | shl(ns, 21) | shl(nd, 25) : hi;
+  }
+}
+
+// The rest of the image under value permutation qi (g.nv = 0: none):
+// logVal, the re-sorted messages and, in faithful mode, the history.
+template <class Sink>
+__device__ __forceinline__ void value_words(const St& s, const Group& g,
+                                            const int8_t* row,
+                                            const int (&p)[N],
+                                            const int (&inv)[N],
+                                            const int (&phi)[S], int qi,
+                                            Sink& out) {
+  const int8_t* q = g.vals + qi * g.nv;
+#pragma unroll
+  for (int k = 0; k < N; ++k)
+#pragma unroll
+    for (int l = 0; l < L; ++l) {
+      const int v = s.logval[inv[k]][l];
+      out(O_LOGVAL + k * L + l, g.nv ? relabel_value(q, g.nv, v) : v);
+    }
+#if RT_E > 0
+  // The value permutation's rank map (none: the identity).
+  const int16_t* rm = g.nv ? g.rmaps + qi * U : nullptr;
+#endif
+  int mh[S], ml[S], mc[S];
+#pragma unroll
+  for (int k = 0; k < S; ++k) {
+    mh[k] = phi[k];
+    mc[k] = s.mcnt[k];
+    const int lo = s.mlo[k];
+    const int e = (lo >> 7) & 15;
+    const int ne = e >= 1 && e <= g.nv ? q[e - 1] + 1 : 0;
+    int nlo = (lo & kLoKeepE) | shl(ne, 7);
+#if RT_E > 0
+    if (rm) {  // mlog, the g field
+      const int gr = (lo >> 17) & kGMask;
+      nlo = (nlo & ~(kGMask << 17)) | shl(gr < U ? __ldg(rm + gr) : 0, 17);
+    }
+#endif
+    ml[k] = g.nv && mc[k] > 0 ? nlo : lo;
+  }
+  sort_bag(mh, ml, mc);
+#pragma unroll
+  for (int k = 0; k < S; ++k) {
+    out(O_MHI + k, mh[k]);
+    out(O_MLO + k, ml[k]);
+    out(O_MCNT + k, mc[k]);
+  }
+#if RT_E > 0
+  history_words(s, row, p, inv, rm, out);
+#endif
+}
+
+__device__ __forceinline__ void load_perm(const int8_t* row, int (&p)[N],
+                                          int (&inv)[N]) {
+#pragma unroll
+  for (int k = 0; k < N; ++k) {
+    p[k] = row[k];
+    inv[k] = row[N + k];
+  }
+}
+
+// Sig-prune (ops/symmetry.pruned_orbit_fp).  Pair k of n items is the k-th
+// (a, b), a < b, in lexicographic order; its transposition's index in the
+// group table is its rank among the n! permutations in lexicographic
+// (itertools) order: c_a = b - a, c_i = 1 for a < i < b, else 0.
+__device__ __forceinline__ void pair_of(int k, int n, int* a, int* b) {
+  int x = 0;
+  while (k >= n - 1 - x) {
+    k -= n - 1 - x;
+    ++x;
+  }
+  *a = x;
+  *b = x + 1 + k;
+}
+
+__device__ __forceinline__ int transposition_rank(int a, int b, int n) {
+  int r = 0;
+  for (int i = 0; i < n; ++i)
+    r = r * (n - i) + (i == a ? b - a : (i > a && i < b ? 1 : 0));
+  return r;
+}
+
+// Exact probe: does the transposition (a b) of the servers (`server`) or
+// of the values map the (viewed) successor s to itself?  The image is
+// built as the orbit scan builds it and compared word by word.
+__device__ __forceinline__ bool probe(const St& s, const Group& g, bool server,
+                                      int a, int b) {
+  const int8_t* row =
+      g.perm + (server ? transposition_rank(a, b, N) : 0) * 2 * N;
+  const int qi = server ? 0 : transposition_rank(a, b, g.nv);
+  int p[N], inv[N], phi[S];
+  load_perm(row, p, inv);
+  relabel_hi(s, row, phi);
+  CmpSink c{reinterpret_cast<const int*>(&s), g.view, true};
+  server_words(s, row, p, inv, g.view, c);
+  value_words(s, g, row, p, inv, phi, qi, c);
+  return c.eq;
+}
+
+// A cheap necessary condition for servers a and b to be interchangeable
+// (the reference's `_server_sig`, compared field by field instead of
+// hashed): equal role, term, commitIndex, log, votedFor class and vote
+// counts.  It only skips probes that would fail.
+__device__ __forceinline__ bool may_swap(const St& s, int view, int a, int b) {
+  bool ok = s.role[a] == s.role[b] && s.term[a] == s.term[b] &&
+            s.commit[a] == s.commit[b] && s.loglen[a] == s.loglen[b];
+#pragma unroll
+  for (int l = 0; l < L; ++l)
+    ok &= s.logterm[a][l] == s.logterm[b][l] &&
+          s.logval[a][l] == s.logval[b][l];
+  const int va = s.voted[a], vb = s.voted[b];
+  ok &= (va == 0 ? 0 : (va == a + 1 ? 1 : 2)) ==
+        (vb == 0 ? 0 : (vb == b + 1 ? 1 : 2));
+  const bool da = view == kViewDeadvotes && s.role[a] != CANDIDATE;
+  const bool db = view == kViewDeadvotes && s.role[b] != CANDIDATE;
+  ok &= __popc(da ? 0 : s.vresp[a]) == __popc(db ? 0 : s.vresp[b]) &&
+        __popc(da ? 0 : s.vgrant[a]) == __popc(db ? 0 : s.vgrant[b]);
+  return ok;
+}
+
+// Is `perm` (n entries) increasing on every verified pair of `eq`?  The
+// coset-representative rule: exactly one element of each coset of the
+// verified stabilizer passes, so skipping the others drops only duplicate
+// orbit members and the minimum is the full scan's.
+template <class T>
+__device__ __forceinline__ bool kept(const T* perm, int n, unsigned eq) {
+  bool keep = true;
+  for (int k = 0; eq; ++k, eq >>= 1)
+    if (eq & 1) {
+      int a, b;
+      pair_of(k, n, &a, &b);
+      keep &= perm[a] < perm[b];
+    }
+  return keep;
+}
+
 // The minimum, as (hi << 32) | lo, of the keys of the group elements whose
 // server permutation is sub, sub + split, ... (each with all Q value
-// permutations); all ones when there is none.
+// permutations), skipping the elements that the verified server and value
+// pairs `eqs` and `eqv` drop (0, 0: none); all ones when there is none.
+// `scanned` counts the elements keyed.
 __device__ __forceinline__ uint64_t orbit_min(const St& s, const Group& g,
                                               const Consts& cs, int sub,
-                                              int split) {
+                                              int split, unsigned eqs,
+                                              unsigned eqv, int* scanned) {
   uint64_t best = ~0ull;
 #pragma unroll 1
   for (int pi = sub; pi < g.P; pi += split) {
     const int8_t* row = g.perm + pi * 2 * N;
     int p[N], inv[N];
-#pragma unroll
-    for (int k = 0; k < N; ++k) {
-      p[k] = row[k];
-      inv[k] = row[N + k];
-    }
-    // Everything but logVal and the messages: shared by the Q elements.
-    RtFp base{};
-#pragma unroll
-    for (int k = 0; k < N; ++k) {
-      const int src = inv[k];
-      const int role = s.role[src];
-      mac(base, cs, O_ROLE + k, role);
-      mac(base, cs, O_TERM + k, s.term[src]);
-      const int vf = clampi(s.voted[src], N + 1);
-      mac(base, cs, O_VOTED + k, vf == 0 ? 0 : row[vf - 1] + 1);
-      mac(base, cs, O_COMMIT + k, s.commit[src]);
-      mac(base, cs, O_LOGLEN + k, s.loglen[src]);
-#pragma unroll
-      for (int l = 0; l < L; ++l)
-        mac(base, cs, O_LOGTERM + k * L + l, s.logterm[src][l]);
-      const bool dead = g.view == kViewDeadvotes && role != CANDIDATE;
-      const int vr = dead ? 0 : s.vresp[src];
-      const int vg = dead ? 0 : s.vgrant[src];
-      int pr = 0, pg = 0;
-#pragma unroll
-      for (int j = 0; j < N; ++j) {
-        pr |= ((vr >> j) & 1) << p[j];
-        pg |= ((vg >> j) & 1) << p[j];
-      }
-      mac(base, cs, O_VRESP + k, pr);
-      mac(base, cs, O_VGRANT + k, pg);
-#pragma unroll
-      for (int m = 0; m < N; ++m) {
-        mac(base, cs, O_NEXT + k * N + m, s.next[src][inv[m]]);
-        mac(base, cs, O_MATCH + k * N + m, s.match[src][inv[m]]);
-      }
-    }
+    load_perm(row, p, inv);
+    if (eqs && !kept(p, N, eqs)) continue;
+    FoldSink base{cs, RtFp{}};
+    server_words(s, row, p, inv, g.view, base);
     int phi[S];
-#pragma unroll
-    for (int k = 0; k < S; ++k) {
-      const int hi = s.mhi[k];
-      const int sx = (hi >> 21) & 15, dx = (hi >> 25) & 15;
-      const int ns = sx < N ? row[sx] : 0, nd = dx < N ? row[dx] : 0;
-      phi[k] = s.mcnt[k] > 0 ? (hi & kHiKeep) | shl(ns, 21) | shl(nd, 25)
-                             : hi;
-    }
+    relabel_hi(s, row, phi);
 #pragma unroll 1
     for (int qi = 0; qi < g.Q; ++qi) {
-      const int8_t* q = g.vals + qi * g.nv;
-      RtFp acc = base;
-#pragma unroll
-      for (int k = 0; k < N; ++k)
-#pragma unroll
-        for (int l = 0; l < L; ++l) {
-          const int v = s.logval[inv[k]][l];
-          mac(acc, cs, O_LOGVAL + k * L + l,
-              g.nv ? relabel_value(q, g.nv, v) : v);
-        }
-#if RT_E > 0
-      // The value permutation's rank map (none: the identity).
-      const int16_t* rm = g.nv ? g.rmaps + qi * U : nullptr;
-#endif
-      int mh[S], ml[S], mc[S];
-#pragma unroll
-      for (int k = 0; k < S; ++k) {
-        mh[k] = phi[k];
-        mc[k] = s.mcnt[k];
-        const int lo = s.mlo[k];
-        const int e = (lo >> 7) & 15;
-        const int ne = e >= 1 && e <= g.nv ? q[e - 1] + 1 : 0;
-        int nlo = (lo & kLoKeepE) | shl(ne, 7);
-#if RT_E > 0
-        if (rm) {  // mlog, the g field
-          const int gr = (lo >> 17) & kGMask;
-          nlo = (nlo & ~(kGMask << 17)) | shl(gr < U ? __ldg(rm + gr) : 0, 17);
-        }
-#endif
-        ml[k] = g.nv && mc[k] > 0 ? nlo : lo;
-      }
-      sort_bag(mh, ml, mc);
-#pragma unroll
-      for (int k = 0; k < S; ++k) {
-        mac(acc, cs, O_MHI + k, mh[k]);
-        mac(acc, cs, O_MLO + k, ml[k]);
-        mac(acc, cs, O_MCNT + k, mc[k]);
-      }
-#if RT_E > 0
-      history_key(s, row, p, inv, rm, cs, acc);
-#endif
-      const uint64_t key =
-          (static_cast<uint64_t>(rt_fmix32(acc.s1 + RT_LANE_SEED_HI)) << 32) |
-          rt_fmix32(acc.s2 + RT_LANE_SEED_LO);
+      if (eqv && !kept(g.vals + qi * g.nv, g.nv, eqv)) continue;
+      FoldSink acc = base;
+      value_words(s, g, row, p, inv, phi, qi, acc);
+      const uint64_t key = (static_cast<uint64_t>(rt_fmix32(
+                                acc.acc.s1 + RT_LANE_SEED_HI)) << 32) |
+                           rt_fmix32(acc.acc.s2 + RT_LANE_SEED_LO);
       best = key < best ? key : best;
+      ++*scanned;
     }
   }
   return best;
 }
 
+// The prescan (ops/kernels.orbit_fp_prescan): the raw fingerprint of the
+// canonical successor, unviewed — raw-identical successors of one block
+// share one orbit scan.
+__device__ __forceinline__ uint64_t raw_key(const St& s, const Consts& cs) {
+  const int* w = reinterpret_cast<const int*>(&s);
+  RtFp acc{};
+#pragma unroll
+  for (int x = 0; x < W; ++x) mac(acc, cs, x, w[x]);
+  return (static_cast<uint64_t>(rt_fmix32(acc.s1 + RT_LANE_SEED_HI)) << 32) |
+         rt_fmix32(acc.s2 + RT_LANE_SEED_LO);
+}
+
 // -- the kernel --------------------------------------------------------------
+
+// One pair's orbit key, by the `split` threads of its group (`sub` each;
+// `on` false: a thread without a pair, which takes part in the shuffles):
+// sig-prune's probes shared out and their verified pairs OR-ed across the
+// group, the orbit scan, the minimum across the group.
+__device__ __forceinline__ uint64_t scan_pair(const St& s, const Group& g,
+                                              const Consts& cs, bool on,
+                                              bool sigprune, int sub,
+                                              int split, int* scanned,
+                                              int* probes) {
+  const int sp = g.P > 1 ? N * (N - 1) / 2 : 0;
+  const int vp = g.Q > 1 ? g.nv * (g.nv - 1) / 2 : 0;
+  unsigned eqs = 0, eqv = 0;
+  if (sigprune && on) {
+    for (int t = sub; t < sp + vp; t += split) {
+      int a, b;
+      if (t < sp) {
+        pair_of(t, N, &a, &b);
+        if (may_swap(s, g.view, a, b)) {
+          eqs |= static_cast<unsigned>(probe(s, g, true, a, b)) << t;
+          ++*probes;
+        }
+      } else {
+        pair_of(t - sp, g.nv, &a, &b);
+        eqv |= static_cast<unsigned>(probe(s, g, false, a, b)) << (t - sp);
+        ++*probes;
+      }
+    }
+  }
+  for (int o = split >> 1; o > 0; o >>= 1) {
+    eqs |= __shfl_xor_sync(kFull, eqs, o);
+    eqv |= __shfl_xor_sync(kFull, eqv, o);
+  }
+  uint64_t key = on ? orbit_min(s, g, cs, sub, split, eqs, eqv, scanned)
+                    : ~0ull;
+  for (int o = split >> 1; o > 0; o >>= 1) {
+    const uint64_t other = __shfl_xor_sync(kFull, key, o);
+    key = other < key ? other : key;
+  }
+  return key;
+}
 
 struct Outputs {
   int* svecs;
@@ -1209,10 +1421,26 @@ struct Outputs {
   uint8_t *inv, *con;
 };
 
-// Shared memory of one block: rows, slots, the lane table, the pair queue,
-// the valid flags, then the group table's bytes.
-__host__ __device__ constexpr size_t smem_bytes(int R, int A, int n_group) {
-  return static_cast<size_t>(R + kThreads) * kWp * 4 +
+// The orbit-scan variants, bits of the launch's `variant`
+// (ops/pallas_step.VARIANTS): the full scan is 0.
+constexpr int kPrescan = 1, kSigPrune = 2;
+// The prescan's table of the block's raw keys: open addressing, a short
+// linear probe; a pair that finds no slot scans its own orbit.
+constexpr int kPrescanSlots = 256, kPrescanProbe = 8;
+// The prescan's shared memory in ints: the table, and a key, a list entry
+// and a table slot per thread.
+constexpr int kPrescanInts = 4 * kPrescanSlots + 4 * kThreads;
+// Counters of `stats` (optional, for measurement): valid pairs, pairs
+// whose orbit scan the prescan skipped, group elements keyed, probes run.
+constexpr int kStats = 4;
+
+// Shared memory of one block: the prescan table (when on), rows, slots,
+// the lane table, the pair queue, the valid flags, then the group table's
+// bytes.
+__host__ __device__ constexpr size_t smem_bytes(int R, int A, int n_group,
+                                                int variant) {
+  return (variant & kPrescan ? kPrescanInts * sizeof(int) : 0) +
+         static_cast<size_t>(R + kThreads) * kWp * 4 +
          static_cast<size_t>(A) * 5 * 4 + static_cast<size_t>(R) * A * 3 +
          static_cast<size_t>(n_group);
 }
@@ -1223,12 +1451,21 @@ __global__ void __launch_bounds__(kThreads, kMinBlocks)
                 const int8_t* __restrict__ groupg, int P, int Q, int nv,
                 const int16_t* __restrict__ rmaps, int view,
                 const int* __restrict__ inv_codes, int n_inv,
-                const int* __restrict__ prog,
-                Limits lim, Outputs out) {
+                const int* __restrict__ prog, Limits lim, int variant,
+                unsigned long long* stats, Outputs out) {
   extern __shared__ int sm[];
   __shared__ int n_queued;
+  __shared__ unsigned counts[kStats];
+  __shared__ int n_reps[2];
   const int R = 1 << lgR;
-  int* rows = sm;                                  // R x kWp
+  const bool prescan = variant & kPrescan, sigprune = variant & kSigPrune;
+  // the prescan's table (keys, then values), the round's keys and the
+  // representatives' list and table slots
+  uint64_t* ptab = reinterpret_cast<uint64_t*>(sm);
+  uint64_t* rkey = ptab + 2 * kPrescanSlots;       // kThreads
+  int* reps = reinterpret_cast<int*>(rkey + kThreads);  // kThreads
+  int* rslot = reps + kThreads;                    // kThreads
+  int* rows = sm + (prescan ? kPrescanInts : 0);   // R x kWp
   int* slots = rows + R * kWp;                     // kThreads x kWp
   int* lanes = slots + kThreads * kWp;             // A x 5
   uint16_t* queue = reinterpret_cast<uint16_t*>(lanes + A * 5);  // R*A
@@ -1244,6 +1481,10 @@ __global__ void __launch_bounds__(kThreads, kMinBlocks)
       rows[r * kWp + w] = vecs[(row0 + r) * W + w];
   for (int t = tid; t < A * 5; t += kThreads) lanes[t] = table[t];
   for (int t = tid; t < n_group; t += kThreads) group[t] = groupg[t];
+  if (prescan)
+    for (int t = tid; t < kPrescanSlots; t += kThreads) ptab[t] = ~0ull;
+  if (tid < kStats) counts[tid] = 0;
+  if (tid < 2) n_reps[tid] = 0;
   if (tid == 0) n_queued = 0;
   __syncthreads();
 
@@ -1269,16 +1510,20 @@ __global__ void __launch_bounds__(kThreads, kMinBlocks)
   for (int t = tid; t < nrows * A; t += kThreads)
     out.valid[row0 * A + t] = vflags[t];
 
-  // Phase 2: finish the queued pairs, `split` threads to a pair.
+  // Phase 2: finish the queued pairs, `split` threads to a pair.  With the
+  // prescan, a round is kThreads pairs, one a thread, and its orbit scans
+  // run after it in a compacted pass over the round's representatives,
+  // `split` threads to each by their count.
   const int nq = n_queued;
   int split = 1;
-  while (split < 32 && 2 * split <= P && 2 * split * nq <= kThreads)
+  while (!prescan && split < 32 && 2 * split <= P && 2 * split * nq <= kThreads)
     split *= 2;
   const int sub = tid & (split - 1);
   const int owner = tid - sub;  // the slot of the pair's first thread
   St& s = *reinterpret_cast<St*>(slots + owner * kWp);
   const Group g{group, group + P * 2 * N, rmaps, P, Q, nv, view};
-  for (int q0 = 0; q0 < nq; q0 += kThreads / split) {
+  int scanned = 0, skipped = 0, probes = 0;
+  for (int q0 = 0, round = 0; q0 < nq; q0 += kThreads / split, ++round) {
     const int k = q0 + tid / split;
     const bool active = k < nq;
     long long lane_g = 0;
@@ -1315,10 +1560,59 @@ __global__ void __launch_bounds__(kThreads, kMinBlocks)
       }
     }
     __syncwarp();
-    uint64_t key = active ? orbit_min(s, g, cs, sub, split) : ~0ull;
-    for (int o = split >> 1; o > 0; o >>= 1) {
-      const uint64_t other = __shfl_xor_sync(kFull, key, o);
-      key = other < key ? other : key;
+    uint64_t key;
+    if (prescan) {
+      // The pair claims its raw key in the block's table: the first
+      // claimant (this round or an earlier one) is the representative,
+      // the others take its key.  The round's representatives are
+      // compacted into a list and scanned together.
+      int slot = -1;
+      bool member = false;
+      if (active) {
+        const uint64_t raw = raw_key(s, cs);
+        int h = static_cast<int>(raw) & (kPrescanSlots - 1);
+        for (int t = 0; raw != ~0ull && t < kPrescanProbe; ++t) {
+          const unsigned long long old =
+              atomicCAS(reinterpret_cast<unsigned long long*>(ptab + h),
+                        ~0ull, static_cast<unsigned long long>(raw));
+          if (old == ~0ull || old == raw) {
+            slot = h;
+            member = old == raw;
+            break;
+          }
+          h = (h + 1) & (kPrescanSlots - 1);
+        }
+        skipped += member;
+      }
+      const bool rep = active && !member;
+      rslot[tid] = slot;
+      const unsigned m = __ballot_sync(kFull, rep);
+      int base = 0;
+      if (lane == 0 && m) base = atomicAdd(&n_reps[round & 1], __popc(m));
+      base = __shfl_sync(kFull, base, 0);
+      if (rep) reps[base + __popc(m & ((1u << lane) - 1u))] = tid;
+      __syncthreads();
+      const int nr = n_reps[round & 1];
+      if (tid == 0) n_reps[(round + 1) & 1] = 0;
+      int sp2 = 1;
+      while (sp2 < 32 && 2 * sp2 <= P && 2 * sp2 * nr <= kThreads) sp2 *= 2;
+      const int sub2 = tid & (sp2 - 1);
+      for (int j0 = 0; j0 < nr; j0 += kThreads / sp2) {
+        const int j = j0 + tid / sp2;
+        const int o = j < nr ? reps[j] : tid;
+        const uint64_t rk = scan_pair(
+            *reinterpret_cast<const St*>(slots + o * kWp), g, cs, j < nr,
+            sigprune, sub2, sp2, &scanned, &probes);
+        if (j < nr && sub2 == 0) {
+          rkey[o] = rk;
+          if (rslot[o] >= 0) ptab[kPrescanSlots + rslot[o]] = rk;
+        }
+      }
+      __syncthreads();
+      key = !active ? ~0ull : member ? ptab[kPrescanSlots + slot] : rkey[tid];
+    } else {
+      key = scan_pair(s, g, cs, active, sigprune, sub, split, &scanned,
+                      &probes);
     }
     const bool lead = active && sub == 0;
     if (lead) {
@@ -1352,6 +1646,17 @@ __global__ void __launch_bounds__(kThreads, kMinBlocks)
     }
     __syncwarp();
   }
+  if (stats) {
+    if (scanned) atomicAdd(&counts[2], static_cast<unsigned>(scanned));
+    if (skipped) atomicAdd(&counts[1], static_cast<unsigned>(skipped));
+    if (probes) atomicAdd(&counts[3], static_cast<unsigned>(probes));
+    __syncthreads();
+    if (tid == 0) {
+      atomicAdd(stats, static_cast<unsigned long long>(nq));
+      for (int c = 1; c < kStats; ++c)
+        atomicAdd(stats + c, static_cast<unsigned long long>(counts[c]));
+    }
+  }
 }
 
 // Rows per block: 32, halved while the grid would have fewer than 256
@@ -1367,11 +1672,11 @@ int rows_log2(int B) {
 extern "C" int rt_step_width() { return W; }
 
 // Blocks of the kernel one multiprocessor holds at once for a launch of B
-// rows with A lanes and the group table's n_group bytes, and the shared
-// memory each takes.
-extern "C" int rt_step_occupancy(int B, int A, int n_group, int* blocks,
-                                 int* smem) {
-  const size_t bytes = smem_bytes(1 << rows_log2(B), A, n_group);
+// rows with A lanes, the group table's n_group bytes and the orbit-scan
+// `variant`, and the shared memory each takes.
+extern "C" int rt_step_occupancy(int B, int A, int n_group, int variant,
+                                 int* blocks, int* smem) {
+  const size_t bytes = smem_bytes(1 << rows_log2(B), A, n_group, variant);
   cudaError_t err = cudaFuncSetAttribute(
       step_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
       static_cast<int>(bytes));
@@ -1388,8 +1693,10 @@ extern "C" int rt_step_occupancy(int B, int A, int n_group, int* blocks,
 // nv > 0, Q rows of U int16 rank maps on the device
 // (ops/symmetry.kernel_rank_maps); otherwise unused and may be null.
 // `inv_codes`: the n_inv invariant codes, and `prog`: the expression
-// programs, int32 on the device (ops/predprog.kernel_tables).  `svecs` must
-// be 16-byte aligned.
+// programs, int32 on the device (ops/predprog.kernel_tables).  `variant`:
+// the orbit-scan variant bits (kPrescan, kSigPrune; 0 the full scan), the
+// same keys by construction.  `stats`: null, or kStats counters on the
+// device that the launch adds to.  `svecs` must be 16-byte aligned.
 extern "C" int rt_step_launch(const int* vecs, int B, const int* table, int A,
                               const uint32_t* c1, const uint32_t* c2,
                               const int8_t* group, int P, int Q, int nv,
@@ -1397,12 +1704,16 @@ extern "C" int rt_step_launch(const int* vecs, int B, const int* table, int A,
                               const int* inv_codes, int n_inv,
                               const int* prog,
                               int max_term, int max_log, int max_msgs,
-                              int max_dup, int* svecs, uint8_t* valid,
-                              uint8_t* ovf, int* fp_hi, int* fp_lo,
-                              uint8_t* inv_ok, uint8_t* con_ok, void* stream) {
+                              int max_dup, int variant,
+                              unsigned long long* stats, int* svecs,
+                              uint8_t* valid, uint8_t* ovf, int* fp_hi,
+                              int* fp_lo, uint8_t* inv_ok, uint8_t* con_ok,
+                              void* stream) {
   if (n_inv < 0 || (n_inv > 0 && (inv_codes == nullptr || prog == nullptr)) ||
       A < 1 || A > kMaxLanes || P < 1 || Q < 1 || nv < 0 || nv > kMaxValues ||
-      (nv == 0 && Q != 1) || reinterpret_cast<uintptr_t>(svecs) % 16 != 0)
+      (nv == 0 && Q != 1) || variant < 0 ||
+      variant > (kPrescan | kSigPrune) ||
+      reinterpret_cast<uintptr_t>(svecs) % 16 != 0)
     return static_cast<int>(cudaErrorInvalidValue);
 #if RT_E > 0
   if (nv > 0 && rmaps == nullptr) return static_cast<int>(cudaErrorInvalidValue);
@@ -1417,7 +1728,7 @@ extern "C" int rt_step_launch(const int* vecs, int B, const int* table, int A,
   const int lgR = rows_log2(B);
   const unsigned blocks =
       static_cast<unsigned>((B + (1 << lgR) - 1) >> lgR);
-  const size_t smem = smem_bytes(1 << lgR, A, P * 2 * N + Q * nv);
+  const size_t smem = smem_bytes(1 << lgR, A, P * 2 * N + Q * nv, variant);
   const cudaError_t err = cudaFuncSetAttribute(
       step_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
       static_cast<int>(smem));
@@ -1425,6 +1736,6 @@ extern "C" int rt_step_launch(const int* vecs, int B, const int* table, int A,
   const Outputs out{svecs, valid, ovf, fp_hi, fp_lo, inv_ok, con_ok};
   step_kernel<<<blocks, kThreads, smem, static_cast<cudaStream_t>(stream)>>>(
       vecs, B, lgR, table, A, cs, group, P, Q, nv, rmaps, view, inv_codes,
-      n_inv, prog, lim, out);
+      n_inv, prog, lim, variant, stats, out);
   return static_cast<int>(cudaGetLastError());
 }

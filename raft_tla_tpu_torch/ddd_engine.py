@@ -36,17 +36,29 @@ violator is the last appended state (asserted by key).
 The chunk loop is on the host.  Each chunk costs one host sync: a small
 stats tensor (streamed count, transitions, the overflow bit, the violation
 fields), which also tells the host where the chunk's streamed rows go and
-how many to pack.  A segment is the run of chunks that fills one of two
+how many to pack.  With ``route_rows`` (``--route K``) the chunk takes the
+routed step's compacted stream of K slots (ops/pallas_step.
+build_step_routed) in place of the dense lanes: the same candidates in the
+same order, and a chunk with more enabled lanes than slots aborts
+(FAIL_ROUTE) unless a violation it found comes first.  A segment is the run of chunks that fills one of two
 ping-pong buffer sets; its rows go to pinned host memory on a copy stream
 while the next segment runs, and the harvest waits for that copy, a second
 host sync per segment (``stats["syncs"]`` counts both kinds).  The chunk's
 stats also carry its live enabled lanes, whose maximum is the
 ``route_peak`` of the ``--stats`` line.
 
+The device dedup set (``--device-dedup``, ops/devdedup.py) filters each
+segment's buffers before their export: a key already exported in this
+level is dropped on the card, so only a level's first occurrences cross to
+the host.  The set is reset at every level (a resume starts it empty); the
+``devdedup`` phase times it, and the ``segment`` event carries
+``export_rows`` and ``dev_dedup_hits``.
+
 Run events (obs/): ``check(events=...)`` writes the reference's event log
 (``run_start``, a ``segment`` at every host flush and level end,
 ``level_end``, ``checkpoint``, ``stop_requested`` at a deadline or SIGINT
-stop, ``run_end``).  The phases ``upload``, ``expand``, ``export``,
+stop, ``run_end``).  The phases ``upload``, ``expand``, ``devdedup``,
+``export``,
 ``dedup``, ``dedup_submit``, ``dedup_wait`` and ``snapshot`` are timed
 when ``RAFT_TLA_PHASE_TIMERS`` is on (each waits for its own work on the
 card, so the two-deep overlap is gone while they are) and traced as
@@ -80,12 +92,12 @@ import torch
 
 from raft_tla_tpu_torch.config import CheckConfig
 from raft_tla_tpu_torch.device_engine import (
-    BUCKET, EMPTY, FAIL_INDEX, FAIL_LEVEL, FAIL_WIDTH, SyncCounter,
-    aggregate_coverage, decode_fail)
+    BUCKET, EMPTY, FAIL_INDEX, FAIL_LEVEL, FAIL_ROUTE, FAIL_WIDTH,
+    SyncCounter, aggregate_coverage, decode_fail)
 from raft_tla_tpu_torch.engine import DEADLOCK, EngineResult, Violation
 from raft_tla_tpu_torch.models import interp, invariants as inv_mod, spec as S
 from raft_tla_tpu_torch.obs.events import RunTelemetry
-from raft_tla_tpu_torch.ops import bitpack, pallas_step
+from raft_tla_tpu_torch.ops import bitpack, devdedup, pallas_step
 from raft_tla_tpu_torch.ops import state as st
 from raft_tla_tpu_torch.ops import symmetry as sym
 from raft_tla_tpu_torch.utils import (ckpt, flushq, keyset, native, pacing,
@@ -138,13 +150,17 @@ def install_sigint_boundary_stop(eng, stack) -> None:
 
 @dataclasses.dataclass(frozen=True)
 class DDDCapacities:
-    """Static shapes (the reference's, without the routed step).
+    """Static shapes (the reference's).
 
     ``block``: frontier upload granularity (rows); ``table``: lossy filter
-    slots (traffic only, not a state-count ceiling); ``seg_rows``: rows of
-    one segment's output buffers (a segment stops early when the next chunk
-    might not fit); ``flush``: pending candidates per host dedup pass;
-    ``levels``: BFS-depth bound.  ``retention``: ``"full"`` keeps every
+    slots (traffic only, not a state-count ceiling; also the device dedup
+    set's capacity); ``seg_rows``: rows of one segment's output buffers (a
+    segment stops early when the next chunk might not fit); ``flush``:
+    pending candidates per host dedup pass; ``levels``: BFS-depth bound;
+    ``route_rows``: above 0, the chunk runs the routed step with that many
+    compacted candidate slots (discovery order is the dense step's, so like
+    ``table`` it is tuning, not checkpoint identity; a chunk with more
+    enabled lanes aborts loudly, FAIL_ROUTE).  ``retention``: ``"full"`` keeps every
     state row and trace link in host RAM; ``"frontier"`` keeps the master
     keys in RAM and only the current and next level of rows, in disk-backed
     level files, with no trace links (a violation reports the state, or,
@@ -156,6 +172,7 @@ class DDDCapacities:
     seg_rows: int = 1 << 19
     flush: int = 1 << 23
     levels: int = 1 << 12
+    route_rows: int = 0
     retention: str = "full"
     keep_levels: bool = False
 
@@ -169,6 +186,8 @@ class DDDCapacities:
         if self.table < BUCKET:
             raise ValueError(
                 f"table={self.table} must be >= one bucket ({BUCKET})")
+        if self.route_rows < 0:
+            raise ValueError(f"route_rows={self.route_rows} must be >= 0")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -627,24 +646,36 @@ class DDDEngine:
         self.caps = caps or DDDCapacities()
         if self.caps.block < config.chunk:
             raise ValueError("block must be >= chunk")
-        if self.caps.seg_rows < config.chunk * self.A:
+        # the most candidates one chunk streams
+        self.NK = self.caps.route_rows or config.chunk * self.A
+        if self.caps.seg_rows < self.NK:
             raise ValueError(
                 f"seg_rows={self.caps.seg_rows} must be >= per-chunk "
-                f"candidate rows = {config.chunk * self.A}")
+                f"candidate rows = {self.NK}")
         self.seg_chunks = seg_chunks
         self._digest_caps = _DigestCaps(block=self.caps.block,
                                         levels=self.caps.levels)
         self.schema = bitpack.BitSchema(self.bounds)
         # gates resolved once at construction, outside the digest (the
-        # reference's RAFT_TLA_HOSTDEDUP and RAFT_TLA_PREFETCH)
+        # reference's RAFT_TLA_HOSTDEDUP, RAFT_TLA_PREFETCH and
+        # RAFT_TLA_DEVDEDUP; the step's own at its build)
         self._host_dedup = keyset.host_dedup_enabled()
         self._prefetch = prefetch.prefetch_enabled()
+        self._devdedup = devdedup.devdedup_backend()
+        self._dd_filter = devdedup.make_filter(self._devdedup) \
+            if self._devdedup else None
         self._merge_budget = max(1 << 16,
                                  (8 * self.caps.flush)
                                  // keyset.DEFAULT_PARTS)
         self.step = pallas_step.build_step(
             self.bounds, config.spec, tuple(config.invariants), self.device,
             symmetry=tuple(config.symmetry), view=config.view)
+        # the routed chunk step; the dense one above also rebuilds frontier
+        # traces
+        self.route_step = pallas_step.build_step_routed(
+            self.bounds, config.spec, tuple(config.invariants), self.device,
+            symmetry=tuple(config.symmetry), view=config.view,
+            k_rows=self.caps.route_rows) if self.caps.route_rows else None
         self.stats = {}
         self._sigint = False
         self._syncs = SyncCounter()
@@ -653,6 +684,13 @@ class DDDEngine:
     def _new_master(self):
         return keyset.new_master(self._host_dedup,
                                  merge_budget=self._merge_budget)
+
+    def _new_devset(self):
+        """An empty device dedup set, or None with the gate off."""
+        if self._dd_filter is None:
+            return None
+        return devdedup.init_set(self.caps.table, self._devdedup,
+                                 self.device)
 
     def new_filter(self) -> tuple:
         """An empty filter table ``(tbl_hi, tbl_lo)`` with its sink row."""
@@ -664,11 +702,13 @@ class DDDEngine:
 
     def _chunk(self, tbl, fbuf, fcon, r0: int, n: int):
         """Expand rows ``[r0, r0 + n)`` of the block: the step, the
-        refbfs-exact truncation, the filter.  Returns the chunk's device
-        tensors and its host stats ``(n_stream, n_valid, overflow,
-        viol_kind, viol_inv, drow, n_live)`` read in one sync; ``n_live``
-        is the reference's per-chunk route count, the live enabled lanes
-        (``fvalid``) before the violation cut."""
+        refbfs-exact truncation, the filter.  Returns the chunk's candidate
+        stream (a dict of ``src`` flat lanes, ``rows``, ``con``), its keys,
+        the filter's ``stream``/``rank`` and its host stats ``(n_stream,
+        n_valid, overflow, viol_kind, viol_inv, drow, n_live, route_ovf)``
+        read in one sync; ``n_live`` is the reference's per-chunk route
+        count, the live enabled lanes before the violation cut.  The stream
+        is the dense step's ``n * A`` lanes or, routed, its K slots."""
         A, dev = self.A, self.device
         n_inv = len(self.config.invariants)
         ev = self._events
@@ -676,19 +716,39 @@ class DDDEngine:
             ev.append([torch.cuda.Event(enable_timing=True)
                        for _ in range(4)])
             ev[-1][0].record()
-        out = self.step(self.schema.unpack(fbuf[r0:r0 + n], torch))
+        vecs = self.schema.unpack(fbuf[r0:r0 + n], torch)
+        con = fcon[r0:r0 + n]
+        NA = n * A
+        if self.route_step is not None:
+            out = self.route_step(vecs, con)
+            src = out["cidx"].clamp(max=NA - 1).long()
+            cand = out["cvalid"]
+            order = out["cidx"].long()
+            keys = out["cfp_hi"], out["cfp_lo"]
+            inv_ok = out["cinv_ok"]
+            ovf_rows = out["overflow"].reshape(-1)[src]
+            stream_of = {"src": src, "rows": out["csvecs"],
+                         "con": out["ccon_ok"]}
+            n_live, route_ovf = out["n_en"], out["route_ovf"]
+        else:
+            out = self.step(vecs)
+            cand = (out["valid"] & con[:, None]).reshape(-1)
+            order = torch.arange(NA, dtype=I64, device=dev)
+            keys = out["fp_hi"].reshape(-1), out["fp_lo"].reshape(-1)
+            inv_ok = out["inv_ok"].reshape(NA, n_inv)
+            ovf_rows = out["overflow"].reshape(-1)
+            stream_of = {"src": order,
+                         "rows": out["svecs"].reshape(NA, self.lay.width),
+                         "con": out["con_ok"].reshape(-1)}
+            n_live, route_ovf = cand.sum(), torch.zeros(
+                (), dtype=torch.bool, device=dev)
         if ev is not None:
             ev[-1][1].record()
-        con = fcon[r0:r0 + n]
-        NK = n * A
-        fvalid = (out["valid"] & con[:, None]).reshape(-1)
-        order = torch.arange(NK, dtype=I64, device=dev)
         # a fill, not torch.tensor(BIG, device=...): a blocking copy from
         # the host would wait for the stream, a second sync per chunk
         big = torch.full((), BIG, dtype=I64, device=dev)
         if n_inv:
-            inv_ok = out["inv_ok"].reshape(NK, n_inv)
-            inv_bad = fvalid & ~inv_ok.all(1)
+            inv_bad = cand & ~inv_ok.all(1)
             first_inv = torch.where(inv_bad, order, big).min()
         else:
             first_inv = big
@@ -702,10 +762,10 @@ class DDDEngine:
         use_dead = dpos < first_inv
         has_inv = (first_inv < BIG) & ~use_dead
         cut_incl = torch.where(use_dead, dpos - 1, first_inv)
-        kvalid = fvalid & (order <= cut_incl)
-        ovf = (kvalid & out["overflow"].reshape(-1)).any()
-        kh = torch.where(kvalid, out["fp_hi"].reshape(-1), EMPTY)
-        kl = torch.where(kvalid, out["fp_lo"].reshape(-1), EMPTY)
+        kvalid = cand & (order <= cut_incl)
+        ovf = (kvalid & ovf_rows).any()
+        kh = torch.where(kvalid, keys[0], EMPTY)
+        kl = torch.where(kvalid, keys[1], EMPTY)
         if ev is not None:
             ev[-1][2].record()
         stream, rank = filter_insert(tbl[0], tbl[1], kh, kl, kvalid)
@@ -713,16 +773,17 @@ class DDDEngine:
             ev[-1][3].record()
         viol_kind = torch.where(use_dead, 2, torch.where(has_inv, 1, 0))
         if n_inv:
-            fi = first_inv.clamp(max=NK - 1)
+            fi = torch.where(inv_bad, torch.arange(
+                cand.shape[0], dtype=I64, device=dev), big).argmin()
             viol_inv = torch.where(
                 has_inv, (~inv_ok[fi]).to(torch.uint8).argmax(), 0)
         else:
             viol_inv = torch.zeros((), dtype=I64, device=dev)
         stats = torch.stack([t.to(I64) for t in (
             rank[-1] + 1, kvalid.sum(), ovf, viol_kind, viol_inv, drow,
-            fvalid.sum())])
+            n_live, route_ovf)])
         host = self._syncs.read(stats)
-        return out, kh, kl, stream, rank, host
+        return stream_of, kh, kl, stream, rank, host
 
     def run_segment(self, tbl, bufs: SegBufs, fbuf, fcon, block_rows: int,
                     c0: int, budget: int):
@@ -735,8 +796,8 @@ class DDDEngine:
         ``fail``, ``viol_kind``, ``viol_inv``, ``dead_g`` (block-relative),
         ``steps``, ``done`` and ``peak`` (the most live enabled lanes in
         any of its chunks)."""
-        B, A, W = self.config.chunk, self.A, self.lay.width
-        NK, OCAP = B * A, self.caps.seg_rows
+        B, A = self.config.chunk, self.A
+        NK, OCAP = self.NK, self.caps.seg_rows
         n_chunks = -(-block_rows // B)
         d = bufs.dev
         cursor = n_valid = fail = vk = vi = steps = peak = 0
@@ -746,29 +807,35 @@ class DDDEngine:
                and cursor + NK <= OCAP):
             r0 = c * B
             n = min(B, block_rows - r0)
-            out, kh, kl, stream, rank, host = self._chunk(tbl, fbuf, fcon,
-                                                          r0, n)
-            k, nv, ovf, vk, vi, drow, n_live = host
+            cs, kh, kl, stream, rank, host = self._chunk(tbl, fbuf, fcon,
+                                                         r0, n)
+            k, nv, ovf, vk, vi, drow, n_live, rovf = host
             peak = max(peak, n_live)
             if k:
-                sidx = torch.empty(n * A + 1, dtype=I64, device=self.device)
-                sidx.scatter_(0, torch.where(stream, rank, n * A),
-                              torch.arange(n * A, dtype=I64,
-                                           device=self.device))
+                M = kh.shape[0]
+                sidx = torch.empty(M + 1, dtype=I64, device=self.device)
+                sidx.scatter_(0, torch.where(stream, rank, M),
+                              torch.arange(M, dtype=I64, device=self.device))
                 sidx = sidx[:k]
+                src = cs["src"][sidx]
                 sl = slice(cursor, cursor + k)
                 d["okey_hi"][sl] = kh[sidx]
                 d["okey_lo"][sl] = kl[sidx]
-                d["orows"][sl] = self.schema.pack(
-                    out["svecs"].reshape(n * A, W)[sidx], torch)
+                d["orows"][sl] = self.schema.pack(cs["rows"][sidx], torch)
                 # block-relative parents (int32 at any depth); the
                 # harvest rebases them to global int64 discovery indices
-                d["opar"][sl] = (r0 + sidx // A).to(I32)
-                d["olane"][sl] = (sidx % A).to(I32)
-                d["ocon"][sl] = out["con_ok"].reshape(-1)[sidx]
+                d["opar"][sl] = (r0 + src // A).to(I32)
+                d["olane"][sl] = (src % A).to(I32)
+                d["ocon"][sl] = cs["con"][sidx]
             cursor += k
             n_valid += nv
             fail |= FAIL_WIDTH if ovf else 0
+            # A found invariant violation outranks a routing overflow: the
+            # compaction keeps the FIRST K enabled lanes in flat order, so
+            # every lane it dropped lies past the violator, beyond the cut
+            # the dense step makes anyway.  A deadlock cut, or no finding,
+            # may have lost candidates before the cut: abort.
+            fail |= FAIL_ROUTE if rovf and vk != 1 else 0
             if vk == 2:
                 dead_g = r0 + min(drow, B - 1)
             c += 1
@@ -778,6 +845,22 @@ class DDDEngine:
         return c, dict(cursor=cursor, n_valid=n_valid, fail=fail,
                        viol_kind=vk, viol_inv=vi, dead_g=dead_g,
                        steps=steps, done=c >= n_chunks, peak=peak)
+
+    def _dev_dedup(self, dst, bufs: SegBufs, cursor: int) -> tuple:
+        """The device set over the first ``cursor`` rows of ``bufs``: the
+        rows whose key this level already exported are dropped and the
+        survivors compacted to the buffers' head in stream order.  Returns
+        ``(set, new cursor, hits)``."""
+        d = bufs.dev
+        dst, _keep, idx, new_n, hits = self._dd_filter(
+            dst, d["okey_hi"][:cursor], d["okey_lo"][:cursor], cursor,
+            self._syncs)
+        new_n, hits = self._syncs.read(torch.stack([new_n, hits]))
+        if hits:
+            idx = idx[:new_n].long()
+            for k in SegBufs.FIELDS:
+                d[k][:new_n] = d[k][idx]
+        return dst, new_n, hits
 
     def _export(self, bufs: SegBufs, n: int):
         """Start the copy of the first ``n`` rows of ``bufs`` to the host;
@@ -926,7 +1009,7 @@ class DDDEngine:
         self._copy_stream = torch.cuda.Stream(dev) \
             if dev.type == "cuda" else None
         self.stats = {"chunks": 0, "segments": 0, "d2h_bytes": 0,
-                      "flush_s": 0.0, "flush_wait_s": 0.0}
+                      "flush_s": 0.0, "flush_wait_s": 0.0, "devdedup_s": 0.0}
         if self._events is not None:
             self.stats.update(step_s=0.0, filter_s=0.0)
         P = self.schema.P
@@ -1000,7 +1083,9 @@ class DDDEngine:
             blocks_done = 0
 
         tbl = self.new_filter()           # filter != correctness: empty
-        export_rows = 0
+        dst = self._new_devset()          # the device set: empty too
+        export_rows = 0      # rows exported to the host (after the set)
+        dd_hits = 0          # rows the device set dropped before export
         bufsets = [SegBufs(self.caps.seg_rows, P, dev) for _ in range(2)]
         pend = {"keys": [], "rows": [], "par": [], "lane": [], "con": []}
         # Background dedup worker (RAFT_TLA_HOSTDEDUP): depth-1 ordered,
@@ -1109,7 +1194,8 @@ class DDDEngine:
                 upload_wait_ms=round(prefetcher.wait_s * 1e3, 3)
                 if prefetcher else None,
                 prefetch_hits=prefetcher.hits if prefetcher else None,
-                export_rows=export_rows)
+                export_rows=export_rows,
+                dev_dedup_hits=dd_hits if self._dd_filter else None)
 
         n_trans_mark = n_trans   # n_trans as of the current block's start
         while not stopped:
@@ -1170,6 +1256,19 @@ class DDDEngine:
                             budget = pacer.update(
                                 time.monotonic() - t_seg, sst["steps"])
                             self.seg_chunks = budget
+                        sst["hits"] = 0
+                        if self._dd_filter is not None and sst["cursor"]:
+                            # in dispatch order (= stream order): the set
+                            # holds exactly the keys exported before this
+                            # segment in this level
+                            t_dd = time.perf_counter()
+                            with phases.phase("devdedup") as ph:
+                                dst, sst["cursor"], sst["hits"] = \
+                                    self._dev_dedup(dst, bufsets[idx],
+                                                    sst["cursor"])
+                                ph.sync(bufsets[idx].dev)
+                            self.stats["devdedup_s"] += \
+                                time.perf_counter() - t_dd
                         with phases.phase("export") as ph:
                             hbuf, cev = self._export(bufsets[idx],
                                                      sst["cursor"])
@@ -1193,6 +1292,7 @@ class DDDEngine:
                     ns = sst["cursor"]
                     n_trans += sst["n_valid"]
                     fail |= sst["fail"]
+                    dd_hits += sst["hits"]
                     if ns:
                         export_rows += ns
                         h = {k: v[:ns].numpy() for k, v in hbuf.items()}
@@ -1259,6 +1359,7 @@ class DDDEngine:
             if n_states == level_ends[-1]:       # no new states: done
                 break
             level_ends.append(n_states)
+            dst = self._new_devset()      # the set is within-level
             if prefetcher is not None:
                 prefetcher.invalidate()
             if frontier:
@@ -1312,6 +1413,8 @@ class DDDEngine:
             host.close()
             constore.close()
             keystore.close()
+        self.stats.update(export_rows=export_rows, dev_dedup_hits=dd_hits,
+                          route_peak=route_peak)
         result = EngineResult(
             n_states=n_states, diameter=len(levels_arr) - 1,
             n_transitions=n_trans,

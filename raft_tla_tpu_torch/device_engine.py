@@ -99,6 +99,7 @@ FAIL_WIDTH = 1      # a successor exceeded a tensor-encoding capacity
 FAIL_PROBE = 2      # linear probe exceeded _MAX_PROBE (table too full)
 FAIL_STORE = 4      # more distinct states than Capacities.n_states
 FAIL_LEVEL = 8      # BFS deeper than Capacities.levels
+FAIL_ROUTE = 32     # DDD engine: the routed step's slots overflowed
 FAIL_INDEX = 64     # DDD engine: a discovery index past its ceiling
 
 _FAIL_TEXT = {
@@ -106,6 +107,8 @@ _FAIL_TEXT = {
     FAIL_PROBE: "fingerprint-table probe overflow (table too full)",
     FAIL_STORE: "state-store capacity exceeded",
     FAIL_LEVEL: "BFS level capacity exceeded",
+    FAIL_ROUTE: "routing budget exceeded (all_to_all halo or EP "
+                "route_rows too small)",
     FAIL_INDEX: "discovery index past the engine ceiling",
 }
 

@@ -44,8 +44,9 @@ contract instead — so ``dedup_wait`` fires only at
 checkpoint/level/stop drains (the on/off asymmetry is the gate's
 phase-timer signature), and ``upload`` becomes the wait for an
 already-staged buffer (a prefetch *hit* costs a swap; a *miss* pays
-the old read+pad+h2d inline).  (The reference's ``devdedup`` phase
-belongs to its device-dedup gate, which the port does not carry.)
+the old read+pad+h2d inline).  With the device dedup set
+(``--device-dedup``) ``devdedup`` times its filter of each segment
+before the export.
 
 **Thread attribution** (schema v8): phases recorded on a thread other
 than the one that built the ``PhaseTimers`` accumulate under

@@ -83,6 +83,13 @@ def u32_bits(h: torch.Tensor) -> torch.Tensor:
     return torch.where(h >= 1 << 31, h - (1 << 32), h).to(torch.int32)
 
 
+def order_key(hi: torch.Tensor, lo: torch.Tensor) -> torch.Tensor:
+    """One int64 per key of int32 words holding uint32 bits, ordered as
+    the unsigned pairs (hi, lo) are: ``(hi - 2^31) * 2^32 + lo``.  Sorts
+    of keys go through it (torch has no lexsort)."""
+    return (((hi.long() & _M32) - (1 << 31)) << 32) | (lo.long() & _M32)
+
+
 def as_uint32(t: torch.Tensor) -> np.ndarray:
     """int32 bit-pattern tensor -> numpy uint32 (the edge cast)."""
     return t.detach().cpu().numpy().astype(np.int32).view(np.uint32)

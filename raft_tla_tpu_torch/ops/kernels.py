@@ -25,9 +25,21 @@ extends ``voterLog``, BecomeLeader inserts its record into the
 Capacity overflow is loud: ``bag_add`` (and the elections insert) report
 when no slot is free, and the engine fails if the flag fires on a lane it
 expands.
+
+The reference's step gates resolve here, at step construction, from the
+same environment variables (``check.py`` sets them from ``--prescan``,
+``--sig-prune`` and ``--megakernel``): :func:`prescan_enabled` (the
+prescan, :func:`orbit_fp_prescan`), :func:`sigprune_enabled` (the pruned
+orbit scan, ops/symmetry.build_orbit_fp ``prune=``) and
+:func:`megakernel_setting`.  Every variant gives the same keys.
+:func:`build_step_routed` is the routed DDD step (``--route K``): the
+enabled lanes compacted into K slots before the per-candidate stages.
 """
 
 from __future__ import annotations
+
+import math
+import os
 
 import torch
 
@@ -43,9 +55,67 @@ from raft_tla_tpu_torch.ops import symmetry as sym
 
 I32 = torch.int32
 
-# Calls of the plain fused step (chip_smoke.py checks that the card path
-# never makes one).
+# Calls of the plain fused step and of the plain routed step (chip_smoke.py
+# checks that the card path never makes one).
 calls = 0
+
+
+# -- gates (the reference's ops/kernels._prescan_enabled and siblings) ------
+
+# The prescan's compaction rungs: the orbit scan runs on the smallest slot
+# count, N/4 then N/2, that the chunk's distinct raw successors fit, else
+# on all N lanes (the reference's _PRESCAN_RUNGS: divisors of N, tried in
+# order).  Raw-identical successors are the same state, so the group
+# representative's key is every member's: counts, discovery order and
+# checkpoints are the same on every rung.
+_PRESCAN_RUNGS = (4, 2)
+# The card's auto rule: the prescan is on from this group order up (the
+# reference's rule for the TPU; PERF.md has the H100's A/B).
+PRESCAN_MIN_GROUP = 120
+
+
+def _force(env: str) -> str:
+    return os.environ.get(env, "auto")
+
+
+def prescan_enabled(bounds: Bounds, symmetry: tuple, device="cpu") -> bool:
+    """The prescan gate: ``RAFT_TLA_PRESCAN`` on/off, else auto: on the
+    CPU whenever there is symmetry; on the card iff |G| >= 120."""
+    if not _PRESCAN_RUNGS or not symmetry:
+        return False
+    force = _force("RAFT_TLA_PRESCAN")
+    if force in ("on", "off"):
+        return force == "on"
+    if torch.device(device).type == "cpu":
+        return True
+    g = 1
+    if "Server" in symmetry:
+        g *= math.factorial(bounds.n_servers)
+    if "Value" in symmetry:
+        g *= math.factorial(bounds.n_values)
+    return g >= PRESCAN_MIN_GROUP
+
+
+def sigprune_enabled(bounds: Bounds, symmetry: tuple) -> bool:
+    """The sig-prune gate: ``RAFT_TLA_SIGPRUNE`` on/off; auto is off, as in
+    the reference."""
+    return bool(symmetry) and _force("RAFT_TLA_SIGPRUNE") == "on"
+
+
+def megakernel_setting() -> str:
+    """``RAFT_TLA_MEGAKERNEL`` as the reference reads it: ``"on"``,
+    ``"off"``, or ``"auto"`` for anything else.  On the card the port's
+    step is K1, the megakernel's counterpart, under auto and on; off (the
+    reference's XLA step) is refused there (ops/pallas_step.build_step).
+    On the CPU every setting runs the plain step."""
+    force = _force("RAFT_TLA_MEGAKERNEL")
+    return force if force in ("on", "off") else "auto"
+
+
+_ROUTED_MEGAKERNEL = (
+    "RAFT_TLA_MEGAKERNEL=on does not compose with the EP-routed step "
+    "(build_step_routed); use the dense step (--route 0) or leave the "
+    "megakernel gate auto/off")
 
 
 # -- batched indexing helpers (one-hot updates, clamped gathers) -------------
@@ -606,9 +676,42 @@ def build_expand(bounds: Bounds, spec: str = "full", family_kernels=None):
     return expand
 
 
+def orbit_fp_prescan(orbit_fp, flat: dict, raw_hi, raw_lo):
+    """The orbit key of each of the N rows of ``flat`` (struct fields
+    ``[N, ...]``), scanning only the first row of each raw key (the
+    reference's ``_orbit_fp_prescan``): a stable sort of the raw keys gives
+    each group its first member, the orbit scan runs on the group
+    representatives compacted to the smallest rung that holds them (unused
+    slots take row 0), and the keys are gathered back through the group
+    map."""
+    N = raw_hi.shape[0]
+    dev = raw_hi.device
+    idx = torch.sort(fpr.order_key(raw_hi, raw_lo), stable=True).indices
+    sh, sl = raw_hi[idx], raw_lo[idx]
+    first = torch.ones(N, dtype=torch.bool, device=dev)
+    first[1:] = (sh[1:] != sh[:-1]) | (sl[1:] != sl[:-1])
+    gid_sorted = torch.cumsum(first.long(), 0) - 1
+    gid = torch.empty(N, dtype=torch.int64, device=dev)
+    gid[idx] = gid_sorted
+    n_uniq = int(gid_sorted[-1]) + 1
+    for div in sorted(_PRESCAN_RUNGS, reverse=True):
+        K = max(1, N // div)
+        if n_uniq <= K:
+            rep = torch.zeros(K + 1, dtype=torch.int64, device=dev)
+            rep[torch.where(first, gid_sorted, K)] = idx
+            fh, fl = orbit_fp({f: a[rep[:K]] for f, a in flat.items()})
+            return fh[gid], fl[gid]
+    return orbit_fp(flat)
+
+
+def _flat(struct: dict, n: int) -> dict:
+    return {f: a.reshape((n,) + a.shape[2:]) for f, a in struct.items()}
+
+
 def build_step(bounds: Bounds, spec: str = "full", invariants: tuple = (),
                symmetry: tuple = (), view: str | None = None,
-               family_kernels=None, keyer=None):
+               family_kernels=None, keyer=None, prescan: bool | None = None,
+               sigprune: bool | None = None):
     """The plain fused frontier step: packed rows -> everything the engine
     needs, the same dict as the reference's ``kernels.build_step``.
 
@@ -627,12 +730,18 @@ def build_step(bounds: Bounds, spec: str = "full", invariants: tuple = (),
     kernels for others of the same contract (:func:`grouped_dispatch`);
     ``keyer(rows int32[N, W]) -> (hi, lo)``, e.g. K2
     (ops/pallas_fp.fingerprint_rows), replaces the plain fingerprint of the
-    keys without symmetry.
+    keys without symmetry.  ``prescan`` and ``sigprune`` choose the orbit
+    scan's variants (None: their gates, :func:`prescan_enabled` with the
+    CPU's rule and :func:`sigprune_enabled`); the keys are the same.
     """
     lay = st.Layout.of(bounds)
     expand = build_expand(bounds, spec, family_kernels)
     inv_fns = [inv_mod.torch_invariant(nm, bounds) for nm in invariants]
     viewer = views.torch_view(view) if view else None
+    if prescan is None:
+        prescan = prescan_enabled(bounds, symmetry)
+    if sigprune is None:
+        sigprune = sigprune_enabled(bounds, symmetry)
     consts, orbit = {}, {}
 
     def step(vecs):
@@ -642,11 +751,24 @@ def build_step(bounds: Bounds, spec: str = "full", invariants: tuple = (),
         if dev not in consts:
             consts[dev] = fpr.torch_constants(lay.width, dev)
             if symmetry:
-                orbit[dev] = sym.build_orbit_fp(bounds, symmetry, consts[dev])
+                orbit[dev] = sym.build_orbit_fp(bounds, symmetry, consts[dev],
+                                                prune=sigprune)
         succs, valid, ovf = expand(st.unpack(vecs.to(I32), lay))
         svecs = st.pack(succs)
         ksuccs = viewer(succs) if viewer else succs
-        if symmetry:
+        if symmetry and prescan:
+            # raw keys of the packed, unviewed successors: raw grouping only
+            # refines canonical equality; invalid lanes form one all-ones
+            # group
+            N = valid.numel()
+            rh, rl = fpr.fingerprint(svecs.reshape(N, -1), consts[dev])
+            vm = valid.reshape(-1)
+            fh, fl = orbit_fp_prescan(orbit[dev], _flat(ksuccs, N),
+                                      torch.where(vm, rh, -1),
+                                      torch.where(vm, rl, -1))
+            fp_hi = torch.where(valid, fh.reshape(valid.shape), 0)
+            fp_lo = torch.where(valid, fl.reshape(valid.shape), 0)
+        elif symmetry:
             fp_hi, fp_lo = orbit[dev](ksuccs)
             fp_hi = torch.where(valid, fp_hi, 0)
             fp_lo = torch.where(valid, fp_lo, 0)
@@ -665,5 +787,102 @@ def build_step(bounds: Bounds, spec: str = "full", invariants: tuple = (),
         return {"svecs": svecs, "valid": valid, "overflow": ovf,
                 "fp_hi": fp_hi, "fp_lo": fp_lo, "inv_ok": inv_ok,
                 "con_ok": st.constraint_ok(succs, bounds)}
+
+    return step
+
+
+def route_compact(fvalid, K: int) -> tuple:
+    """The routed step's stable compaction of the flat enabled lanes
+    ``fvalid [N]`` into ``K`` slots: ``(cidx, cvalid, gidx, route_ovf,
+    n_en)``.  Slot k takes the k-th enabled lane in flat order (a cumsum
+    and a scatter, no sort), so the compacted stream is the dense stream
+    with the dead lanes deleted; ``cidx`` is ``N`` on unused slots and
+    ``gidx`` clamps it to ``N - 1`` for gathers; ``route_ovf`` flags more
+    than ``K`` enabled lanes.  The outputs stay on the device."""
+    N, dev = fvalid.shape[0], fvalid.device
+    pos = torch.cumsum(fvalid.to(I32), 0) - 1
+    n_en = pos[-1] + 1 if N else torch.zeros((), dtype=I32, device=dev)
+    slot = torch.where(fvalid & (pos < K), pos, K).long()
+    cidx = torch.full((K + 1,), N, dtype=I32, device=dev)
+    cidx.scatter_(0, slot, torch.arange(N, dtype=I32, device=dev))
+    cidx = cidx[:K]
+    return (cidx, cidx < N, cidx.clamp(max=max(N - 1, 0)).long(), n_en > K,
+            n_en)
+
+
+def check_routed(k_rows: int, megakernel: bool | None = None) -> int:
+    """The routed step's construction checks (the reference's): the
+    megakernel gate on refuses, and ``k_rows`` must be positive."""
+    if megakernel is None:
+        megakernel = megakernel_setting() == "on"
+    if megakernel:
+        raise ValueError(_ROUTED_MEGAKERNEL)
+    if k_rows <= 0:
+        raise ValueError(f"k_rows={k_rows} must be positive")
+    return int(k_rows)
+
+
+def build_step_routed(bounds: Bounds, spec: str = "full",
+                      invariants: tuple = (), symmetry: tuple = (),
+                      k_rows: int = 0, view: str | None = None,
+                      megakernel: bool | None = None, family_kernels=None,
+                      sigprune: bool | None = None):
+    """The plain routed frontier step (the reference's
+    ``build_step_routed``): the expansion, then the enabled lanes of the
+    live rows compacted into ``k_rows`` slots in flat order
+    (:func:`route_compact`), and the per-candidate stages (pack, view,
+    orbit key or fingerprint, invariants, constraint) on those slots only.
+
+    ``step(vecs int32[B, W], row_ok bool[B] or None) -> dict`` with the
+    dense ``valid``/``overflow`` ``[B, A]`` (not masked by ``row_ok``) and
+    the compacted stream: ``cidx [K]`` (the flat lane ``b * A + a`` of each
+    slot, ``N = B * A`` on unused slots), ``cvalid [K]``, ``csvecs [K, W]``,
+    ``cfp_hi``/``cfp_lo [K]``, ``cinv_ok [K, n_inv]``, ``ccon_ok [K]``,
+    ``route_ovf`` (more than K enabled lanes: the caller aborts) and
+    ``n_en`` (the enabled lanes).  An unused slot holds lane ``N - 1``'s
+    values, as the reference's gather does.  ``row_ok`` marks the live rows:
+    only their lanes take slots.  The orbit key is the full or the pruned
+    scan (``sigprune``, None: its gate); the prescan is the dense step's.
+    """
+    K = check_routed(k_rows, megakernel)
+    lay = st.Layout.of(bounds)
+    expand = build_expand(bounds, spec, family_kernels)
+    inv_fns = [inv_mod.torch_invariant(nm, bounds) for nm in invariants]
+    viewer = views.torch_view(view) if view else None
+    if sigprune is None:
+        sigprune = sigprune_enabled(bounds, symmetry)
+    consts, orbit = {}, {}
+
+    def step(vecs, row_ok=None):
+        global calls
+        calls += 1
+        dev = vecs.device
+        if dev not in consts:
+            consts[dev] = fpr.torch_constants(lay.width, dev)
+            if symmetry:
+                orbit[dev] = sym.build_orbit_fp(bounds, symmetry, consts[dev],
+                                                prune=sigprune)
+        succs, valid, ovf = expand(st.unpack(vecs.to(I32), lay))
+        N = valid.numel()
+        live = valid if row_ok is None else valid & row_ok[:, None]
+        cidx, cvalid, gidx, route_ovf, n_en = route_compact(
+            live.reshape(-1), K)
+        csucc = {f: a[gidx] for f, a in _flat(succs, N).items()}
+        csvecs = st.pack(csucc)
+        ksucc = viewer(csucc) if viewer else csucc
+        if symmetry:
+            cfp_hi, cfp_lo = orbit[dev](ksucc)
+        else:
+            cfp_hi, cfp_lo = fpr.fingerprint(
+                st.pack(ksucc) if viewer else csvecs, consts[dev])
+        if inv_fns:
+            cinv_ok = torch.stack([f(csucc) for f in inv_fns], dim=-1)
+        else:
+            cinv_ok = torch.ones((K, 0), dtype=torch.bool, device=dev)
+        return {"valid": valid, "overflow": ovf, "cidx": cidx,
+                "cvalid": cvalid, "csvecs": csvecs, "cfp_hi": cfp_hi,
+                "cfp_lo": cfp_lo, "cinv_ok": cinv_ok,
+                "ccon_ok": st.constraint_ok(csucc, bounds),
+                "route_ovf": route_ovf, "n_en": n_en}
 
     return step

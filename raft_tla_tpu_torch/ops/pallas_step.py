@@ -13,6 +13,20 @@ rank maps (ops/symmetry.kernel_rank_maps), and the view's code
 (models/views.KERNEL_CODES); the invariants are the kernel's codes and
 expression programs (ops/predprog.kernel_tables).
 
+The orbit stage has the reference's three variants, bits of one launch
+argument of the same kernel: the full scan, the prescan (raw-identical
+successors of a block share one orbit scan) and sig-prune (transposition
+probes, then one group element per coset of the verified stabilizer),
+and both; they give the same keys (csrc/step.cu).  :func:`build_step`
+resolves them from the gates at construction (ops/kernels.prescan_enabled
+with the card's rule, ops/kernels.sigprune_enabled); ``launches_by``
+counts the launches of each.  ``RAFT_TLA_MEGAKERNEL=off`` asks for the
+reference's XLA step, which has no place on the card: the port's step on
+the card is K1 and the plain step is the CPU contract, so that setting is
+refused for a CUDA device.  :func:`build_step_routed` is the routed DDD
+step: on the card K1's dense output, then the stable compaction in torch
+ops (ops/kernels.route_compact).
+
 The kernel is compiled per layout (servers, log capacity, message slots
 and, in faithful mode, election slots, allLogs words and the log
 universe's terms and values are ``-D`` macros, see csrc/step.cu) and cached
@@ -41,8 +55,20 @@ from raft_tla_tpu_torch.ops import symmetry as sym
 
 SOURCE = "step.cu"
 
-# Kernel launches so far (chip_smoke.py reads and resets it).
+# Kernel launches so far, in all and by orbit-scan variant (chip_smoke.py
+# reads and resets them).
+VARIANTS = {"full": 0, "prescan": 1, "sigprune": 2, "both": 3}
 launches = 0
+launches_by = dict.fromkeys(VARIANTS, 0)
+# K1's optional counters (build_step(count=True)): valid pairs, pairs whose
+# orbit scan the prescan skipped, group elements keyed, probes run.
+STATS = ("pairs", "prescan_skipped", "elements", "probes")
+
+MEGAKERNEL_OFF_CUDA = (
+    "--megakernel off asks for the reference's XLA step, which the port "
+    "does not run on the card: its step on the card is K1 (csrc/step.cu, "
+    "the megakernel's counterpart) and the plain step is the CPU contract "
+    "(--device cpu)")
 
 # The fused step's whole write surface per spec subset (the struct fields a
 # successor may differ from its parent in, faithful-mode fields included) —
@@ -92,7 +118,7 @@ def _lib(bounds: Bounds):
                     ctypes.c_void_p] + [ctypes.c_int] * 3
                    + [ctypes.c_void_p, ctypes.c_int]
                    + [ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p]
-                   + [ctypes.c_int] * 4 + [ctypes.c_void_p] * 8)
+                   + [ctypes.c_int] * 5 + [ctypes.c_void_p] * 9)
     fn.restype = ctypes.c_int
     W = st.Layout.of(bounds).width
     if lib.rt_step_width() != W:
@@ -102,36 +128,52 @@ def _lib(bounds: Bounds):
 
 
 def occupancy(bounds: Bounds, spec: str = "full", symmetry: tuple = (),
-              rows: int = 8192) -> tuple:
+              rows: int = 8192, variant: str = "full") -> tuple:
     """``(blocks, shared bytes)``: the K1 blocks one multiprocessor holds
-    at once for a launch of ``rows`` rows of this layout, and the shared
-    memory each takes (cudaOccupancyMaxActiveBlocksPerMultiprocessor)."""
+    at once for a launch of ``rows`` rows of this layout and orbit-scan
+    ``variant``, and the shared memory each takes
+    (cudaOccupancyMaxActiveBlocksPerMultiprocessor)."""
     lib = build.library(SOURCE, layout_defines(bounds))
     fn = lib.rt_step_occupancy
-    fn.argtypes = [ctypes.c_int] * 3 + [ctypes.c_void_p] * 2
+    fn.argtypes = [ctypes.c_int] * 4 + [ctypes.c_void_p] * 2
     fn.restype = ctypes.c_int
     P, Q = sym.group_sizes(bounds, symmetry)
     nv = bounds.n_values if "Value" in symmetry else 0
     blocks, smem = ctypes.c_int(0), ctypes.c_int(0)
     err = fn(rows, len(SP.lane_table(bounds, spec)),
-             P * 2 * bounds.n_servers + Q * nv, ctypes.byref(blocks),
-             ctypes.byref(smem))
+             P * 2 * bounds.n_servers + Q * nv, VARIANTS[variant],
+             ctypes.byref(blocks), ctypes.byref(smem))
     build.check(err, "step occupancy")
     return blocks.value, smem.value
 
 
 def build_step(bounds: Bounds, spec: str = "full", invariants: tuple = (),
-               device="cuda", symmetry: tuple = (), view: str | None = None):
+               device="cuda", symmetry: tuple = (), view: str | None = None,
+               prescan: bool | None = None, sigprune: bool | None = None,
+               count: bool = False):
     """The fused step for ``device``: the K1 launcher on a CUDA device, the
-    plain torch step on the CPU."""
+    plain torch step on the CPU.  ``prescan``/``sigprune`` choose the orbit
+    scan's variant (None: the gates, each with its rule for ``device``);
+    without symmetry there is one scan.  ``count=True`` gives the K1
+    launcher a ``stats`` tensor of the :data:`STATS` counters that its
+    launches add to."""
     device = torch.device(device)
+    if prescan is None:
+        prescan = kernels.prescan_enabled(bounds, symmetry, device)
+    if sigprune is None:
+        sigprune = kernels.sigprune_enabled(bounds, symmetry)
+    prescan, sigprune = bool(prescan and symmetry), bool(sigprune and symmetry)
     if device.type == "cpu":
-        return kernels.build_step(bounds, spec, invariants, symmetry, view)
+        return kernels.build_step(bounds, spec, invariants, symmetry, view,
+                                  prescan=prescan, sigprune=sigprune)
     if device.type != "cuda":
         raise ValueError(f"no step kernel for device {device}")
+    if kernels.megakernel_setting() == "off":
+        raise ValueError(MEGAKERNEL_OFF_CUDA)
     if not torch.cuda.is_available():
         raise RuntimeError("device='cuda' asked for, but torch sees no GPU")
     launch = _lib(bounds)
+    variant = ("full", "prescan", "sigprune", "both")[prescan + 2 * sigprune]
     W = st.Layout.of(bounds).width
     table = torch.tensor(SP.lane_table(bounds, spec), dtype=torch.int32,
                          device=device).reshape(-1).contiguous()
@@ -154,7 +196,9 @@ def build_step(bounds: Bounds, spec: str = "full", invariants: tuple = (),
              nv, rmaps.data_ptr() if rmaps.numel() else None,
              views.KERNEL_CODES[view], codes.data_ptr() if n_inv else None,
              n_inv, prog.data_ptr(), bounds.max_term, bounds.max_log,
-             bounds.max_msgs, bounds.max_dup)
+             bounds.max_msgs, bounds.max_dup, VARIANTS[variant])
+    stats = torch.zeros(len(STATS), dtype=torch.int64, device=device) \
+        if count else None
     names = ("svecs", "valid", "overflow", "fp_hi", "fp_lo", "inv_ok",
              "con_ok")
 
@@ -177,11 +221,52 @@ def build_step(bounds: Bounds, spec: str = "full", invariants: tuple = (),
                 torch.empty((B, A, n_inv), dtype=b8, device=dev),
                 torch.empty((B, A), dtype=b8, device=dev))
         err = launch(vecs.data_ptr(), B, *fixed,
+                     stats.data_ptr() if stats is not None else None,
                      *(t.data_ptr() for t in outs), build.stream_ptr(dev))
         build.check(err, "step kernel launch")
         launches += 1
+        launches_by[variant] += 1
         return dict(zip(names, outs))
 
     step.keep = (table, consts, codes, prog, group, rmaps)  # what `fixed`
     #                                                          points to
+    step.variant, step.stats = variant, stats
+    return step
+
+
+def build_step_routed(bounds: Bounds, spec: str = "full",
+                      invariants: tuple = (), device="cuda",
+                      symmetry: tuple = (), view: str | None = None,
+                      k_rows: int = 0, prescan: bool | None = None,
+                      sigprune: bool | None = None):
+    """The routed step for ``device`` (ops/kernels.build_step_routed's
+    contract): on a CUDA device K1's dense step, then the compaction of the
+    live enabled lanes and the gathers in torch ops; the plain routed step
+    on the CPU.  An unused slot's values are unwritten: readers mask by
+    ``cvalid``."""
+    device = torch.device(device)
+    if device.type == "cpu":
+        return kernels.build_step_routed(bounds, spec, invariants, symmetry,
+                                         k_rows, view, sigprune=sigprune)
+    K = kernels.check_routed(k_rows)
+    dense = build_step(bounds, spec, invariants, device, symmetry, view,
+                       prescan, sigprune)
+
+    def step(vecs, row_ok=None):
+        out = dense(vecs)
+        valid = out["valid"]
+        N = valid.numel()
+        live = valid if row_ok is None else valid & row_ok[:, None]
+        cidx, cvalid, gidx, route_ovf, n_en = kernels.route_compact(
+            live.reshape(-1), K)
+        return {"valid": valid, "overflow": out["overflow"], "cidx": cidx,
+                "cvalid": cvalid,
+                "csvecs": out["svecs"].reshape(N, -1)[gidx],
+                "cfp_hi": out["fp_hi"].reshape(-1)[gidx],
+                "cfp_lo": out["fp_lo"].reshape(-1)[gidx],
+                "cinv_ok": out["inv_ok"].reshape(N, -1)[gidx],
+                "ccon_ok": out["con_ok"].reshape(-1)[gidx],
+                "route_ovf": route_ovf, "n_en": n_en}
+
+    step.dense = dense
     return step

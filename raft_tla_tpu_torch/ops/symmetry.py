@@ -45,8 +45,13 @@ Three forms of the same arithmetic:
 - ``csrc/step.cu``: K1's orbit stage on the card, fed by
   :func:`kernel_tables` and :func:`kernel_rank_maps`.
 
-The reference's prescan ladder and sig-prune are gated variants that give
-the same keys bit for bit; they are not ported (ROADMAP.md queue A item 7).
+:func:`build_orbit_fp` with ``prune=True`` is sig-prune, the reference's
+signature-refinement pruning (``RAFT_TLA_SIGPRUNE``, ``--sig-prune``):
+exact transposition probes find the pairs of servers (and of values) that
+a state's image leaves unchanged, and the scan keys one group element per
+coset of the stabilizer they generate — the same minimum, bit for bit
+(see :func:`pruned_orbit_fp`).  K1 runs the same probes and skips per lane
+(``csrc/step.cu``).  The prescan is the step's (ops/kernels).
 """
 
 from __future__ import annotations
@@ -414,7 +419,8 @@ def group_images(bounds: Bounds, axes: tuple, device):
     """``images(struct)``: a generator over the |G| = P·Q group elements
     (element k is server permutation ``k // Q`` then value permutation
     ``k % Q``) of the canonical packed image ``int32[..., W]`` of a batched
-    struct — the plain permutation that K1's orbit stage is held to."""
+    struct — the plain permutation that K1's orbit stage is held to.
+    ``images.image(struct, k)`` is element k's image alone."""
     sl = _server_luts(bounds) if "Server" in axes else None
     vl = _value_luts(bounds) if "Value" in axes else None
     sluts = tuple(torch.as_tensor(a, device=device) for a in sl) \
@@ -427,20 +433,139 @@ def group_images(bounds: Bounds, axes: tuple, device):
         sluts = (sluts[0].long(),) + sluts[1:]
     P, Q = group_sizes(bounds, axes)
 
+    def image(struct, k):
+        pi, qi = k // Q, k % Q
+        t = struct
+        if sluts is not None:
+            t = _permute_struct_batch(t, *(a[pi] for a in sluts))
+        if vluts is not None:
+            t = _permute_values_batch(t, *(a[qi] for a in vluts))
+        return st.pack(st.canonicalize(t))
+
     def images(struct):
         for k in range(P * Q):
-            pi, qi = k // Q, k % Q
-            t = struct
-            if sluts is not None:
-                t = _permute_struct_batch(t, *(a[pi] for a in sluts))
-            if vluts is not None:
-                t = _permute_values_batch(t, *(a[qi] for a in vluts))
-            yield st.pack(st.canonicalize(t))
+            yield image(struct, k)
 
+    images.image = image
     return images
 
 
-def build_orbit_fp(bounds: Bounds, axes: tuple, consts: torch.Tensor):
+# -- sig-prune (the reference's signature-refinement pruning) ---------------
+#
+# Servers a and b are interchangeable in a state iff the transposition
+# (a b) maps the state to itself, compared as packed canonical rows (exact,
+# no hashing).  The verified transpositions generate a subgroup H of the
+# state's stabilizer, and g and g∘h give the same image for h in H, so the
+# scan needs one element per coset gH: keep g iff it is increasing on every
+# verified pair (exactly one element of each coset is).  Every distinct
+# orbit member is still keyed, so the pruned minimum is the full one.
+# Value permutations factor the same way: kept(p, q) = kept_s(p) & kept_v(q).
+# A per-server signature (:func:`_server_sig`) is a necessary condition for
+# interchangeability, so a chunk in which no state repeats a signature
+# skips the server probes.  The reference's static-slot rungs serve XLA's
+# static shapes; here (as in K1) the scan just skips what no lane keeps.
+
+@functools.lru_cache(maxsize=None)
+def _transposition_pairs(bounds: Bounds) -> tuple:
+    """``(a, b, perm_index)`` for every server pair a < b, ``perm_index``
+    locating the transposition (a b) in :func:`permutations` order."""
+    ps = permutations(bounds)
+    n = bounds.n_servers
+    out = []
+    for a in range(n):
+        for b in range(a + 1, n):
+            t = list(range(n))
+            t[a], t[b] = b, a
+            out.append((a, b, ps.index(tuple(t))))
+    return tuple(out)
+
+
+@functools.lru_cache(maxsize=None)
+def _value_transposition_pairs(bounds: Bounds) -> tuple:
+    """The value-axis counterpart of :func:`_transposition_pairs`."""
+    qs = value_permutations(bounds)
+    V = bounds.n_values
+    out = []
+    for a in range(V):
+        for b in range(a + 1, V):
+            t = list(range(V))
+            t[a], t[b] = b, a
+            out.append((a, b, qs.index(tuple(t))))
+    return tuple(out)
+
+
+def _pair_less_lut(perms: tuple, pairs: tuple) -> np.ndarray:
+    """bool ``[P, n_pairs]``: permutation p is increasing on pair (a, b),
+    ``p[a] < p[b]`` — the coset-representative condition per pair."""
+    arr = np.asarray(perms, np.int32)
+    return np.stack([arr[:, a] < arr[:, b] for (a, b, _) in pairs], axis=1)
+
+
+def _server_sig(struct: dict) -> torch.Tensor:
+    """A per-server signature ``[..., n]`` (int64 holding uint32): role,
+    term, commitIndex, logLen, the votedFor class (nil, self, other), the
+    vote counts and the log, mixed.  Equal signatures are necessary for two
+    servers to be interchangeable; the exact probe decides."""
+    def mix(h, x):
+        return ((h ^ (x.long() & _M32)) * 0x9E3779B1) & _M32
+
+    n = struct["role"].shape[-1]
+    vf = struct["votedFor"]
+    self_id = torch.arange(n, device=vf.device) + 1
+    vf_cls = torch.where(vf == 0, 0, torch.where(vf == self_id, 1, 2))
+    h = torch.full(struct["role"].shape, 0x811C9DC5, dtype=torch.int64,
+                   device=vf.device)
+    for f in ("role", "term", "commitIndex", "logLen"):
+        h = mix(h, struct[f])
+    h = mix(h, vf_cls)
+    # at call time: ops/kernels imports this module
+    from raft_tla_tpu_torch.ops.kernels import _popcount
+    h = mix(h, _popcount(struct["vResp"]))
+    h = mix(h, _popcount(struct["vGrant"]))
+    lt, lv = struct["logTerm"], struct["logVal"]
+    for c in range(lt.shape[-1]):
+        h = mix(h, lt[..., c])
+        h = mix(h, lv[..., c])
+    return h
+
+
+def keep_mask(bounds: Bounds, axes: tuple, struct: dict, images
+              ) -> torch.Tensor:
+    """bool ``[N, P*Q]``: the group elements sig-prune keys for each row of
+    ``struct`` (fields ``[N, ...]``); ``images`` is :func:`group_images`'
+    generator.  Element 0, the identity, is always kept."""
+    P, Q = group_sizes(bounds, axes)
+    N, dev = struct["role"].shape[0], struct["role"].device
+    id_row = st.pack(st.canonicalize(struct))
+
+    def keep_from(pairs, images_of, perms):
+        if not pairs:
+            return torch.ones((N, len(perms)), dtype=torch.bool, device=dev)
+        eq = torch.stack([images_of(a, b, k) for a, b, k in pairs], 1)
+        less = torch.as_tensor(_pair_less_lut(perms, pairs), device=dev)
+        return ~(eq[:, None, :] & ~less[None]).any(-1)
+
+    sig = _server_sig(struct) if "Server" in axes else None
+
+    def server_eq(a, b, k):
+        if not (sig[:, a] == sig[:, b]).any():    # nowhere interchangeable
+            return torch.zeros(N, dtype=torch.bool, device=dev)
+        return (images.image(struct, k * Q) == id_row).all(-1)
+
+    def value_eq(a, b, k):
+        return (images.image(struct, k) == id_row).all(-1)
+
+    keep_s = keep_from(_transposition_pairs(bounds), server_eq,
+                       permutations(bounds)) if "Server" in axes else \
+        torch.ones((N, 1), dtype=torch.bool, device=dev)
+    keep_v = keep_from(_value_transposition_pairs(bounds), value_eq,
+                       value_permutations(bounds)) if "Value" in axes else \
+        torch.ones((N, 1), dtype=torch.bool, device=dev)
+    return (keep_s[:, :, None] & keep_v[:, None, :]).reshape(N, P * Q)
+
+
+def build_orbit_fp(bounds: Bounds, axes: tuple, consts: torch.Tensor,
+                   prune: bool = False):
     """The plain batched orbit key: ``struct[..., fields] -> (hi, lo)``
     int32 tensors holding the uint32 bits, over the leading dims.
 
@@ -448,26 +573,51 @@ def build_orbit_fp(bounds: Bounds, axes: tuple, consts: torch.Tensor):
     device.  For each image of :func:`group_images`: fingerprint, keep the
     lexicographic min of the unsigned pair.  The comparison runs in int64
     holding values in [0, 2^32): a fused 64-bit key ``hi * 2^32 + lo``
-    would overflow.
+    would overflow.  ``prune=True`` is sig-prune (:func:`pruned_orbit_fp`),
+    the same keys.
     """
     images = group_images(bounds, axes, consts.device)
+    P, Q = group_sizes(bounds, axes)
 
-    def orbit_fp(struct):
-        global plain_calls
-        plain_calls += 1
+    def scan(struct, keep=None):
         bh = bl = None
-        for img in images(struct):
-            hi, lo = fpr.fingerprint(img, consts)
+        for k in range(P * Q):
+            if keep is not None and not bool(keep[:, k].any()):
+                continue
+            hi, lo = fpr.fingerprint(images.image(struct, k), consts)
             hi, lo = hi.to(torch.int64) & _M32, lo.to(torch.int64) & _M32
-            if bh is None:
+            if bh is None:                       # k = 0, always kept
                 bh, bl = hi, lo
                 continue
             take = (hi < bh) | ((hi == bh) & (lo < bl))
+            if keep is not None:
+                take &= keep[:, k]
             bh = torch.where(take, hi, bh)
             bl = torch.where(take, lo, bl)
         return fpr.u32_bits(bh), fpr.u32_bits(bl)
 
-    return orbit_fp
+    def orbit_fp(struct):
+        global plain_calls
+        plain_calls += 1
+        return scan(struct)
+
+    if not prune or P * Q == 1:
+        return orbit_fp
+
+    def pruned_orbit_fp(struct):
+        """Sig-prune: the keep mask of :func:`keep_mask`, then the minimum
+        over each row's kept elements (an element no row keeps is not
+        imaged at all)."""
+        global plain_calls
+        plain_calls += 1
+        lead = struct["role"].shape[:-1]
+        n = int(np.prod(lead)) if lead else 1
+        flat = {f: a.reshape((n,) + a.shape[len(lead):])
+                for f, a in struct.items()}
+        hi, lo = scan(flat, keep_mask(bounds, axes, flat, images))
+        return hi.reshape(lead), lo.reshape(lead)
+
+    return pruned_orbit_fp
 
 
 def orbit_sizes(vecs: torch.Tensor, bounds: Bounds, axes: tuple

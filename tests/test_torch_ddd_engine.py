@@ -234,7 +234,9 @@ def test_cli_engine_ddd(tmp_path):
     assert code == cli.EXIT_VIOLATION
     assert "Invariant NaiveNoTwoLeaders is violated" in out
     c = cfg("r", "s1, s2", "NoTwoLeaders")
-    for flag in ("--route", "--device-dedup", "--devdedup", "--reshard-to",
+    # (the gate flags take the reference's values: "4" is not one of
+    # --device-dedup's; --route is held in test_torch_gates_cli.py)
+    for flag in ("--device-dedup", "--devdedup", "--reshard-to",
                  "--seg-chunks"):
         with pytest.raises(SystemExit) as e:
             _run([c, *base, flag, "4"])

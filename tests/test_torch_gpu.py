@@ -18,6 +18,7 @@ from raft_tla_tpu_torch.config import Bounds, CheckConfig
 from raft_tla_tpu_torch.device_engine import Capacities, DeviceEngine
 from raft_tla_tpu_torch.ops import fingerprint as fpr
 from raft_tla_tpu_torch.ops import kernels, pallas_fp, pallas_step
+from raft_tla_tpu_torch.ops import symmetry as sym
 
 pytestmark = pytest.mark.gpu
 
@@ -325,3 +326,56 @@ def test_schema_and_ir_steps_on_the_card_equal_the_cpu_ones(cuda):
     assert (res.n_states, res.diameter, res.n_transitions, res.levels) == \
         (ref.n_states, ref.diameter, ref.n_transitions, ref.levels)
     assert pallas_step.launches == k1 and pallas_fp.launches > k2
+
+
+@pytest.mark.parametrize("variant", ["prescan", "sigprune", "both"])
+@pytest.mark.parametrize("kw,spec,axes,view", [
+    (dict(n_servers=3, n_values=2, max_term=2, max_log=1, max_msgs=2),
+     "full", ("Server", "Value"), "deadvotes"),
+    (FAITHFUL, "full", ("Server", "Value"), None),
+    (dict(n_servers=5, n_values=1, max_term=2, max_log=0, max_msgs=2),
+     "election", ("Server",), None),
+], ids=["full-3s2v-ServerxValue-deadvotes", "faithful-3s2v-ServerxValue",
+        "election-5s-Server"])
+def test_step_kernel_orbit_variants(cuda, kw, spec, axes, view, variant):
+    """K1's prescan, sig-prune and both orbit scans against K1's full scan
+    and against the plain step of the same variant: ``valid`` on every
+    lane, the rest where valid; the launch counted under its variant and
+    the routed launcher's live slots equal to the dense launch's."""
+    b = Bounds(**kw)
+    invs = INVS[:1] + (HIST if b.history else ())
+    eng = DeviceEngine(CheckConfig(bounds=b, spec=spec, invariants=invs,
+                                   chunk=512), Capacities(n_states=1 << 18))
+    res = eng.check(max_chunks=30)
+    rows = eng.carry["store"][:min(res.n_states, 2048)]
+    pre, sp = variant in ("prescan", "both"), variant in ("sigprune", "both")
+    full = pallas_step.build_step(b, spec, invs, cuda, axes, view,
+                                  prescan=False, sigprune=False)(rows)
+    before = pallas_step.launches_by[variant]
+    step = pallas_step.build_step(b, spec, invs, cuda, axes, view,
+                                  prescan=pre, sigprune=sp, count=True)
+    got = step(rows)
+    assert pallas_step.launches_by[variant] == before + 1
+    plain = kernels.build_step(b, spec, invs, axes, view, prescan=pre,
+                               sigprune=sp)(rows)
+    val = full["valid"]
+    assert torch.equal(got["valid"], val)
+    for want in (full, plain):
+        for k in ("svecs", "overflow", "fp_hi", "fp_lo", "inv_ok",
+                  "con_ok"):
+            diff = got[k] != want[k]
+            if diff.dim() > 2:
+                diff = diff.flatten(2).any(-1)
+            assert not (diff & val).any(), k
+    pairs, skipped, elements, _probes = step.stats.tolist()
+    assert pairs == int(val.sum()) and (skipped > 0) == pre
+    P, Q = sym.group_sizes(b, axes)
+    assert elements <= (pairs - skipped) * P * Q
+    routed = pallas_step.build_step_routed(b, spec, invs, cuda, axes, view,
+                                           k_rows=val.numel(),
+                                           prescan=pre, sigprune=sp)(rows)
+    cv = routed["cvalid"]
+    src = routed["cidx"][cv].long()
+    assert int(cv.sum()) == int(val.sum())
+    assert torch.equal(routed["cfp_hi"][cv], full["fp_hi"].reshape(-1)[src])
+

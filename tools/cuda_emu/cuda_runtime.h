@@ -87,6 +87,11 @@ inline unsigned __ballot_sync(unsigned, bool p) {
 template <class T> T __shfl_sync(unsigned, T v, int src) { return emu::exch(v, src); }
 template <class T> T __shfl_xor_sync(unsigned, T v, int o) { return emu::exch(v, (threadIdx.x % 32) ^ o); }
 inline int atomicAdd(int* p, int v) { return __atomic_fetch_add(p, v, __ATOMIC_SEQ_CST); }
+inline unsigned atomicAdd(unsigned* p, unsigned v) { return __atomic_fetch_add(p, v, __ATOMIC_SEQ_CST); }
+inline unsigned long long atomicAdd(unsigned long long* p, unsigned long long v) { return __atomic_fetch_add(p, v, __ATOMIC_SEQ_CST); }
+inline unsigned long long atomicCAS(unsigned long long* p, unsigned long long cmp, unsigned long long v) {
+  __atomic_compare_exchange_n(p, &cmp, v, false, __ATOMIC_SEQ_CST, __ATOMIC_SEQ_CST); return cmp;
+}
 inline int __popc(unsigned x) { return __builtin_popcount(x); }
 inline int __ffs(unsigned x) { return __builtin_ffs(x); }
 template <class T> T __ldg(const T* p) { return *p; }

@@ -1,14 +1,16 @@
 """Run the port's CUDA kernels on the CPU, in a host emulation, against
 their plain PyTorch versions.
 
-    python3 tools/cuda_emu/emulate.py [--sanitize] [k1] [k2]
+    python3 tools/cuda_emu/emulate.py [--sanitize] [k1] [k2] [variants]
 
 Compiles ``raft_tla_tpu_torch/csrc/step.cu`` (K1, one binary per layout)
 and ``csrc/fingerprint.cu`` (K2) with g++ against ``cuda_runtime.h`` here,
 which runs every CUDA thread as a host thread, and holds their outputs to
 ``ops/kernels.build_step`` and ``ops/fingerprint.fingerprint`` under the
 kernels' contract (K1: ``valid`` on every lane, the rest where ``valid``
-is set; K2: every key), bit-exact.  ``--sanitize`` builds with
+is set; K2: every key), bit-exact.  ``variants`` runs K1's prescan and
+sig-prune orbit scans (and both) on the symmetric layouts, each against
+the same plain step.  ``--sanitize`` builds with
 ``-fsanitize=undefined,address``.  It rehearses a kernel's logic before a
 run on the card; it says nothing of speed, and cannot catch what only the
 GPU compiler does.  Work files go to ``build/cuda_emu/``.  Exits 1 on a
@@ -96,7 +98,8 @@ def reachable_rows(b: Bounds, spec: str, invs: tuple, n: int,
     return eng.carry["store"][idx].clone()
 
 
-def k1_case(name, b, spec, invs, axes, view, rows, flags) -> bool:
+def k1_case(name, b, spec, invs, axes, view, rows, flags,
+            variant: int = 0) -> bool:
     ref = kernels.build_step(b, spec, invs, axes, view)(rows)
     B, W = rows.shape
     table = np.asarray(SP.lane_table(b, spec), np.int32).reshape(-1)
@@ -106,7 +109,7 @@ def k1_case(name, b, spec, invs, axes, view, rows, flags) -> bool:
     d = WORK / "case"
     d.mkdir(parents=True, exist_ok=True)
     np.array([B, A, W, P, Q, nv, views.KERNEL_CODES[view], len(invs),
-              b.max_term, b.max_log, b.max_msgs, b.max_dup],
+              b.max_term, b.max_log, b.max_msgs, b.max_dup, variant],
              np.int32).tofile(d / "meta.i32")
     codes, prog = predprog.kernel_tables(invs, b)
     (codes if codes.size else np.zeros(1, np.int32)).tofile(d / "inv.i32")
@@ -136,8 +139,11 @@ def k1_case(name, b, spec, invs, axes, view, rows, flags) -> bool:
             diff = diff.reshape(B, A, -1).any(-1)
         bad[k] = int((diff & val).sum())
     n_bad = sum(bad.values())
+    stats = np.fromfile(d / "o_stats.u64", np.uint64)
     print(f"K1 {name}: rows {B}, A {A}, W {W}, |G| {P * Q}, valid "
-          f"{int(val.sum())}: mismatches {bad if n_bad else 0}", flush=True)
+          f"{int(val.sum())}, variant {variant} (pairs, prescan-skipped, "
+          f"elements keyed, probes: {stats.tolist()}): mismatches "
+          f"{bad if n_bad else 0}", flush=True)
     return n_bad == 0
 
 
@@ -187,6 +193,35 @@ def k1(flags) -> bool:
     return ok
 
 
+def variants(flags) -> bool:
+    """K1's prescan (1), sig-prune (2) and both (3) against the plain step
+    on the symmetric layouts, faithful mode and the view included."""
+    flag = Bounds(3, 2, 2, 1, 2)
+    fflag = Bounds(3, 2, 2, 1, 2, history=True, max_elections=6)
+    five = Bounds(5, 2, 2, 0, 2)
+    ok = True
+    rows = reachable_rows(flag, "full", FULL5, 700)
+    frows = reachable_rows(fflag, "full", INV7, 300)
+    erows = reachable_rows(five, "election", ("NoTwoLeaders",), 60)
+    # all-servers-identical rows: every transposition verifies
+    init = rows[:1].expand(40, -1).contiguous()
+    for variant in (1, 2, 3):
+        for axes, view in ((("Server",), None),
+                           (("Server", "Value"), "deadvotes"),
+                           (("Value",), None)):
+            ok &= k1_case(f"flagship {axes} {view}", flag, "full", FULL5,
+                          axes, view, rows, flags, variant)
+        ok &= k1_case("flagship init rows, Server x Value", flag, "full",
+                      FULL5, ("Server", "Value"), None, init, flags, variant)
+        for axes in (("Server",), ("Server", "Value")):
+            ok &= k1_case(f"faithful {axes}", fflag, "full", INV7, axes,
+                          None, frows, flags, variant)
+        ok &= k1_case("election 5s/2v, Server", five, "election",
+                      ("NoTwoLeaders",), ("Server",), None, erows, flags,
+                      variant)
+    return ok
+
+
 def k2(flags) -> bool:
     exe = binary("fingerprint.cu", "fp_main.cpp", {}, flags)
     rng = np.random.default_rng(1)
@@ -214,12 +249,15 @@ def k2(flags) -> bool:
 
 def main(argv) -> int:
     flags = SANITIZE if "--sanitize" in argv else FLAGS
-    which = [a for a in argv if a in ("k1", "k2")] or ["k1", "k2"]
+    which = [a for a in argv if a in ("k1", "k2", "variants")] \
+        or ["k1", "k2", "variants"]
     ok = True
     if "k2" in which:
         ok &= k2(flags)
     if "k1" in which:
         ok &= k1(flags)
+    if "variants" in which:
+        ok &= variants(flags)
     print("all bit-exact" if ok else "MISMATCH")
     return 0 if ok else 1
 

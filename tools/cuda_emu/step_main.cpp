@@ -1,12 +1,14 @@
 // K1 (csrc/step.cu) under the host emulation: reads a case written by
 // emulate.py from a directory, launches rt_step_launch, writes the outputs.
 // Outputs start as garbage, so a lane the kernel leaves unwritten shows.
+// meta.i32 holds B A W P Q nv view n_inv, the four limits and the
+// orbit-scan variant; the kStats counters go to o_stats.u64.
 #include <cstdio>
 #include <string>
 #include <vector>
 
 #include <cuda_runtime.h>
-namespace { int sm[1 << 17]; }  // the block's dynamic shared memory
+namespace { alignas(16) int sm[1 << 17]; }  // the block's dynamic shared memory
 #include "kernel_gen.cu"
 
 template <class T>
@@ -35,6 +37,7 @@ int main(int, char** argv) {
   const auto m = load<int>(d, "meta.i32");  // B A W P Q nv view n_inv lims
   const int B = m[0], A = m[1], W = m[2], n_inv = m[7];
   if (W != rt_step_width()) return 3;
+  unsigned long long stats[4] = {0, 0, 0, 0};
   const auto codes = load<int>(d, "inv.i32");
   const auto prog = load<int>(d, "prog.i32");
   const auto vecs = load<int>(d, "vecs.i32");
@@ -52,7 +55,8 @@ int main(int, char** argv) {
   const int err = rt_step_launch(
       vecs.data(), B, table.data(), A, c1.data(), c2.data(), group.data(),
       m[3], m[4], m[5], rmaps.empty() ? nullptr : rmaps.data(), m[6],
-      codes.data(), n_inv, prog.data(), m[8], m[9], m[10], m[11], svecs, valid.data(),
+      codes.data(), n_inv, prog.data(), m[8], m[9], m[10], m[11], m[12], stats,
+      svecs, valid.data(),
       ovf.data(), hi.data(), lo.data(), inv.data(), con.data(), nullptr);
   if (err) return 4;
   save(d, "o_svecs.i32", svecs, lanes * W);
@@ -62,5 +66,6 @@ int main(int, char** argv) {
   save(d, "o_fp_lo.i32", lo.data(), lanes);
   save(d, "o_inv_ok.u8", inv.data(), lanes * n_inv);
   save(d, "o_con_ok.u8", con.data(), lanes);
+  save(d, "o_stats.u64", stats, 4);
   return 0;
 }
