@@ -60,8 +60,9 @@ Phases (each prints a line; any failure exits non-zero):
 8. 300 chunks of the phase-5 and phase-7 runs (after their first 3,000
    and 5,000) under torch.profiler: the card's time by kernel, K1's kernel
    time per chunk inside the engine, and the card's idle share;
-9. the flagship through the DDD engine (``--engine ddd``, full
-   retention): phase 5's counts and levels, K1 launched on every chunk, no
+9. the flagship through the DDD engine (``--engine ddd --host-dedup on
+   --prefetch on``, full retention; on the card both gates equal their
+   auto): phase 5's counts and levels, K1 launched on every chunk, no
    plain-step call; its wall, orbits/s, segments, chunks, host syncs per
    chunk, K1's and the filter's milliseconds per chunk (CUDA events), the
    bytes copied to the host, the host flush seconds, peak device memory
@@ -146,7 +147,12 @@ Phases (each prints a line; any failure exits non-zero):
    K --device-dedup sort --prescan on --sig-prune on``: 23,902 orbits,
    diameter 31, 40,119 transitions, K1 launched in its "both" variant on
    every chunk.  ``tools/gates_run.py`` times the variants, the routed
-   step and the device set on the flagship and elect5.
+   step and the device set on the flagship and elect5;
+18. the static analyzer: ``python -m raft_tla_tpu_torch.lint
+   runs/MC3s2v.cfg --strict`` and ``python -m raft_tla_tpu_torch.lint
+   --strict`` (passes 1-5 over the cfg in both modes and over the port's
+   tree), each exit 0, with the findings by pass (all 0), the waivers in
+   use and each run's wall.  It launches no kernel.
 
 The line before the last is ``{"kernels": [...]}``; the last line is
 ``{"ok": true, "device": {...}}``.  Tolerance everywhere: bit-exact (all
@@ -331,7 +337,7 @@ P17_CASES = (
 P17_ROUTE_SHARE = 2
 # The step and engine gates the CLI sets process-wide (drive restores them).
 GATE_ENVS = ("RAFT_TLA_PRESCAN", "RAFT_TLA_SIGPRUNE", "RAFT_TLA_MEGAKERNEL",
-             "RAFT_TLA_DEVDEDUP")
+             "RAFT_TLA_DEVDEDUP", "RAFT_TLA_HOSTDEDUP", "RAFT_TLA_PREFETCH")
 P17C_EXPECT = (23_902, 31, 40_119)
 
 
@@ -1281,12 +1287,15 @@ def phase9(results):
     """The flagship through the DDD engine."""
     want_levels = flagship_levels()
     want = (94_396_461, 57, 258_131_266)
-    argv = [str(FLAGSHIP_CFG), *FLAGSHIP_ARGS, "--engine", "ddd"]
+    # the host dedup and upload prefetch gates named: on the card (more
+    # than one core) both equal their auto
+    argv = [str(FLAGSHIP_CFG), *FLAGSHIP_ARGS, "--engine", "ddd",
+            "--host-dedup", "on", "--prefetch", "on"]
     code, eng, res, out, wall, launches = drive(argv, "DDD flagship run")
     got = (res.n_states, res.diameter, res.n_transitions)
     say(f"phase 9: flagship {FLAGSHIP_CFG.name} {' '.join(FLAGSHIP_ARGS)} "
-        f"--engine ddd: exit {code}; orbits {got[0]}, diameter {got[1]}, "
-        f"transitions {got[2]} (expected {want}); levels equal to "
+        f"--engine ddd --host-dedup on --prefetch on: exit {code}; orbits "
+        f"{got[0]}, diameter {got[1]}, transitions {got[2]} (expected {want}); levels equal to "
         f"{FLAGSHIP_OUT.name}: {res.levels == want_levels}")
     results["ddd_phase9"] = report_ddd("phase 9", eng, res, wall, launches)
     if code != 0 or got != want or res.levels != want_levels:
@@ -2493,6 +2502,59 @@ def phase17c(results):
     results["launches_phase17c"] = launches
 
 
+def phase18(results):
+    """The static analyzer over the checkout: the flagship cfg and the
+    port's tree, each a CLI run under --strict that must exit 0 (the two
+    run side by side: each spends most of its wall importing torch);
+    meanwhile the findings by pass and the waivers in use, from the same
+    passes run here."""
+    from raft_tla_tpu_torch.analysis import contracts, threadlint
+    from raft_tla_tpu_torch.lint import build_argparser, run_lint
+    argvs = ([str(FLAGSHIP_CFG.relative_to(ROOT)), "--strict"], ["--strict"])
+    runs = [None] * len(argvs)
+
+    def cli(k):
+        t0 = time.monotonic()
+        proc = subprocess.run(
+            [sys.executable, "-m", "raft_tla_tpu_torch.lint", *argvs[k]],
+            cwd=ROOT, capture_output=True, text=True, timeout=300)
+        runs[k] = (proc, time.monotonic() - t0)
+
+    threads = [threading.Thread(target=cli, args=(k,))
+               for k in range(len(argvs))]
+    for t in threads:
+        t.start()
+    t0 = time.monotonic()
+    findings, code = run_lint(build_argparser().parse_args(
+        [str(FLAGSHIP_CFG), "--strict"]))
+    tally_s = time.monotonic() - t0
+    by_pass = {p: sum(f.pass_ == p for f in findings)
+               for p in ("width", "cfg", "jit", "thread", "contract")}
+    kinds = [kind for _p, _l, kind in
+             contracts.waivers(threadlint.package_sources(str(ROOT)))]
+    in_use = {k: kinds.count(k) for k in contracts.WAIVER_KINDS}
+    for t in threads:
+        t.join()
+    for argv, run in zip(argvs, runs):
+        if run is None:
+            fail(f"the lint run {argv} did not finish")
+        proc, wall = run
+        last = (proc.stdout.strip().splitlines() or [""])[-1]
+        say(f"phase 18: python -m raft_tla_tpu_torch.lint {' '.join(argv)}"
+            f": exit {proc.returncode}, {last!r}, wall {wall:.2f} s")
+        if proc.returncode != 0:
+            fail(f"the lint run {argv} exited {proc.returncode}:\n"
+                 f"{proc.stdout[-2000:]}{proc.stderr[-2000:]}")
+    say(f"phase 18: findings by pass {by_pass}; waivers in use {in_use} "
+        f"(none stale: pass 5 audits each); the five passes in this "
+        f"process {tally_s:.2f} s")
+    if code != 0 or findings:
+        fail(f"phase 18: the in-process lint found {findings}")
+    results["lint"] = {"findings_by_pass": by_pass, "waivers": in_use,
+                       "walls_s": [w for _p, w in runs],
+                       "passes_s": tally_s}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device visible to torch", file=sys.stderr)
@@ -2503,7 +2565,7 @@ def main() -> int:
         return 2
     phases = [phase1, phase2, phase3, phase4, phase5, phase6, phase7,
               phase8, phase9, phase10, phase11, phase12, phase13, phase14,
-              phase15, phase16, phase17]
+              phase15, phase16, phase17, phase18]
     t_all = time.monotonic()
     card = phase0()
     results = {}
@@ -2526,7 +2588,7 @@ def main() -> int:
         "step": ("cuda", "raft_tla_tpu_torch/csrc/step.cu",
                  "raft_tla_tpu/ops/pallas_step.py:131"),
         "fingerprint": ("cuda", "raft_tla_tpu_torch/csrc/fingerprint.cu",
-                        "raft_tla_tpu/ops/pallas_fp.py:80"),
+                        "raft_tla_tpu/ops/pallas_fp.py:81"),
     }
     kernels = []
     for name, (route, src, repl) in meta.items():

@@ -1,6 +1,5 @@
 """Findings — the port's copy of ``raft_tla_tpu/analysis/report.py``, the
-one result type of the reference's five analysis passes (the port runs
-Pass 1, the width pass).
+one result type of the five analysis passes.
 
 A finding is a *claim about the model or its sources*, not a runtime
 event: severity ``error`` means the pass could not prove the property it
@@ -14,7 +13,9 @@ while still printing what it noticed.
 
 from __future__ import annotations
 
+import ast
 import dataclasses
+import functools
 
 ERROR = "error"
 WARNING = "warning"
@@ -83,3 +84,10 @@ def exit_code(findings, strict: bool = False) -> int:
     if strict and findings:
         return 1
     return 0
+
+
+@functools.lru_cache(maxsize=1024)
+def parse(src: str, path: str = "<string>") -> ast.Module:
+    """``ast.parse`` shared by passes 3-5, which read the same sources:
+    one parse a file per process.  The trees are read, never changed."""
+    return ast.parse(src, filename=path)

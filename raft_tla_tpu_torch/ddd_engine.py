@@ -509,8 +509,8 @@ def frontier_backtrace(step, schema, lay, bounds, table, chunk, device,
             hit = (out["valid"] & con[:, None]).reshape(-1)
             hit &= (out["fp_hi"].reshape(-1) == tgt_hi) \
                 & (out["fp_lo"].reshape(-1) == tgt_lo)
-            found, idx = (int(x) for x in torch.stack(
-                [hit.any().to(I64), hit.to(torch.uint8).argmax()]).tolist())
+            found, idx = (int(x) for x in torch.stack(  # lint: jit-ok trace search after the run, one read a block
+                [hit.any().to(I64), hit.to(torch.uint8).argmax()]).tolist())  # 1-bit hits as uint8 for argmax
             if found:
                 hitg = b + idx // A
                 rev.append((table[idx % A].label(), py))
@@ -570,7 +570,7 @@ def filter_insert(tbl_hi, tbl_lo, key_hi, key_lo, active):
     slot_empty = (row_hi == EMPTY) & (row_lo == EMPTY)
     has_empty = slot_empty.any(1)
     evict = kh64 & (Sb - 1)                  # uint32 key_hi % BUCKET
-    wslot = torch.where(has_empty, slot_empty.to(torch.uint8).argmax(1),
+    wslot = torch.where(has_empty, slot_empty.to(torch.uint8).argmax(1),  # 1-bit flags as uint8 for argmax
                         evict)
     rank = torch.cumsum(stream, 0, dtype=I64) - 1
 
@@ -776,7 +776,7 @@ class DDDEngine:
             fi = torch.where(inv_bad, torch.arange(
                 cand.shape[0], dtype=I64, device=dev), big).argmin()
             viol_inv = torch.where(
-                has_inv, (~inv_ok[fi]).to(torch.uint8).argmax(), 0)
+                has_inv, (~inv_ok[fi]).to(torch.uint8).argmax(), 0)  # 1-bit flags as uint8 for argmax
         else:
             viol_inv = torch.zeros((), dtype=I64, device=dev)
         stats = torch.stack([t.to(I64) for t in (
@@ -1138,8 +1138,8 @@ class DDDEngine:
             into the slot's host buffers and start their copy to the
             device; returns ``(rows, con, event or None)``."""
             hr, hc, dr, dc = slots[slot]
-            hr.numpy()[:rows] = host.read(start, rows)
-            hc.numpy()[:rows] = constore.read(start, rows)[:, 0] != 0
+            hr.numpy()[:rows] = host.read(start, rows)  # lint: jit-ok pinned host buffer, a view
+            hc.numpy()[:rows] = constore.read(start, rows)[:, 0] != 0  # lint: jit-ok pinned host buffer, a view
             if side is None:
                 return hr, hc, None
             with torch.cuda.stream(side):
@@ -1295,7 +1295,7 @@ class DDDEngine:
                     dd_hits += sst["hits"]
                     if ns:
                         export_rows += ns
-                        h = {k: v[:ns].numpy() for k, v in hbuf.items()}
+                        h = {k: v[:ns].numpy() for k, v in hbuf.items()}  # lint: jit-ok host buffers, after the segment's sync
                         pend["keys"].append(keyset.pack_keys(
                             h["okey_hi"].view(np.uint32),
                             h["okey_lo"].view(np.uint32)))

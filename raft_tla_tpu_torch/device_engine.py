@@ -283,7 +283,7 @@ class DeviceEngine:
         if key is None:
             hi, lo = pallas_fp.fingerprint_rows(row.reshape(1, -1))
         else:
-            hi, lo = (torch.tensor(np.array([x], np.uint32).view(np.int32),
+            hi, lo = (torch.tensor(np.array([x], np.uint32).view(np.int32),  # lint: jit-ok Init key, once a run
                                    device=self.device) for x in key)
         TB = c["tbl_hi"].shape[0] - 1
         b0 = lo.to(I64) & (TB - 1)
@@ -293,7 +293,7 @@ class DeviceEngine:
                  n_trans=0, fail=0, lvl=1, c=0,
                  levels=np.zeros((self.caps.levels,), np.int32))
         self.carry = c
-        key = hi.to(I64).item() & 0xFFFFFFFF, lo.to(I64).item() & 0xFFFFFFFF
+        key = hi.to(I64).item() & 0xFFFFFFFF, lo.to(I64).item() & 0xFFFFFFFF  # lint: jit-ok Init key, once a run
         return key
 
     def carry_to_numpy(self) -> list:
@@ -418,7 +418,7 @@ class DeviceEngine:
         # First invariant violation among the new states, in discovery
         # order; with check_deadlock, the first expanded row without an
         # enabled action (flat priority b * A), whichever comes first.
-        big = torch.tensor(BIG, dtype=I64, device=dev)
+        big = torch.tensor(BIG, dtype=I64, device=dev)  # lint: jit-ok hidden sync, ROADMAP queue B (d) 1
         if n_inv and n_new:
             bad = ~out["inv_ok"].reshape(B * A, n_inv)[new_idx]
             bad_any = bad.any(1)
@@ -427,13 +427,13 @@ class DeviceEngine:
             first = torch.where(kfirst >= 0, new_idx[kc], big)
             bad_inv = bad[kc].to(I32).argmax()
         else:
-            kfirst = torch.tensor(-1, device=dev)
-            first, bad_inv = big, torch.tensor(0, device=dev)
+            kfirst = torch.tensor(-1, device=dev)  # lint: jit-ok hidden sync, ROADMAP queue B (d) 1
+            first, bad_inv = big, torch.tensor(0, device=dev)  # lint: jit-ok hidden sync, ROADMAP queue B (d) 1
         if self.config.check_deadlock:
             dead = live & ~out["valid"].any(1)
             drow = torch.where(dead.any(), dead.to(I32).argmax(), -1)
         else:
-            drow = torch.tensor(-1, device=dev)
+            drow = torch.tensor(-1, device=dev)  # lint: jit-ok hidden sync, ROADMAP queue B (d) 1
         stats = torch.stack([t.to(I64) for t in (
             valid.sum(), (valid & out["overflow"]).any(), unres.any(),
             kfirst, first, bad_inv, drow)])
@@ -511,7 +511,7 @@ class DeviceEngine:
         """Close a segment: one progress record (the reference's)."""
         c = self.carry
         with tel.phases.phase("export"):
-            cov = aggregate_coverage(self.table, c["cov"][:self.A].cpu())
+            cov = aggregate_coverage(self.table, c["cov"][:self.A].cpu())  # lint: jit-ok once a segment
         self._syncs.n += 1
         self.stats["segments"] = self.stats.get("segments", 0) + 1
         tel.segment(n_states=c["n_states"], level=c["lvl"],

@@ -170,13 +170,13 @@ class Engine:
                 vecs = torch.as_tensor(np.stack([store.get(g) for g in gidx]),
                                        device=self.device)
                 out = self.step(vecs)
-                valid = out["valid"].cpu().numpy()              # [nb, A]
-                ovf = (out["overflow"] & out["valid"]).cpu().numpy()
-                keys = (out["fp_hi"].to(torch.int64) << 32
+                valid = out["valid"].cpu().numpy()  # [nb, A]; lint: jit-ok host dedup, ROADMAP queue B (d) 4
+                ovf = (out["overflow"] & out["valid"]).cpu().numpy()  # lint: jit-ok host dedup, ROADMAP queue B (d) 4
+                keys = (out["fp_hi"].to(torch.int64) << 32  # lint: jit-ok host dedup, ROADMAP queue B (d) 4
                         | (out["fp_lo"].to(torch.int64) & 0xFFFFFFFF)
                         ).cpu().numpy().view(np.uint64)
-                inv_ok = out["inv_ok"].cpu().numpy()           # [nb, A, nI]
-                con_ok = out["con_ok"].cpu().numpy()
+                inv_ok = out["inv_ok"].cpu().numpy()  # [nb, A, nI]; lint: jit-ok host dedup, ROADMAP queue B (d) 4
+                con_ok = out["con_ok"].cpu().numpy()  # lint: jit-ok host dedup, ROADMAP queue B (d) 4
 
                 if ovf.any():
                     b, a = np.argwhere(ovf)[0]
@@ -204,7 +204,7 @@ class Engine:
                 n_transitions += int(flat_valid.sum())
                 new_flat: list[int] = []
                 h0 = time.perf_counter()
-                for fi in np.nonzero(flat_valid)[0].tolist():
+                for fi in np.nonzero(flat_valid)[0].tolist():  # lint: jit-ok host dedup, ROADMAP queue B (d) 4
                     kk = int(flat_keys[fi])
                     if kk in seen:
                         continue
@@ -226,7 +226,7 @@ class Engine:
                     continue
 
                 sel = torch.as_tensor(new_flat, device=self.device)
-                rows = out["svecs"].reshape(nb * A, W)[sel].cpu().numpy()
+                rows = out["svecs"].reshape(nb * A, W)[sel].cpu().numpy()  # lint: jit-ok host dedup, ROADMAP queue B (d) 4
                 base = len(store)
                 store.append(rows)
                 for t, fi in enumerate(new_flat):

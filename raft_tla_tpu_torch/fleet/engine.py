@@ -192,7 +192,7 @@ class FleetSimulator:
         factor from the visit counts at the dispatch's start."""
         w = wvec
         if self.steer_tau:          # 0.0 leaves the weights exactly as set
-            r = cov_total / max(float(cov_total.mean()), 1.0)
+            r = cov_total / max(float(cov_total.mean()), 1.0)  # lint: jit-ok numpy array, no device read
             w = wvec * np.exp(-self.steer_tau * np.log1p(r))
         return torch.as_tensor(w, dtype=torch.float64).to(self.device)
 
@@ -241,7 +241,7 @@ class FleetSimulator:
         vinv = c.viol_inv[vgid.clamp(max=self.walkers - 1)]
         dmin, dgid = least(c.dead_step)
         self.fetches += 1
-        return torch.cat([torch.stack([d_beh, d_st, maxd, fail.long(), vmin,
+        return torch.cat([torch.stack([d_beh, d_st, maxd, fail.long(), vmin,  # lint: jit-ok the one fused fetch a dispatch
                                        vgid, vinv, dmin, dgid]),
                           cov]).cpu().tolist()
 
@@ -308,7 +308,7 @@ class FleetSimulator:
                 k = vgid if viol else dgid
                 name = self.config.invariants[vinv] if viol else DEADLOCK
                 trace = replay(self.model, self.table, self.bounds, init_py,
-                               c.hist[k].cpu().tolist(), int(c.hlen[k]))
+                               c.hist[k].cpu().tolist(), int(c.hlen[k]))  # lint: jit-ok once, at the violation
                 res = self._result(nb, nst, mx,
                                    Violation(name, trace[-1][1], trace),
                                    t0, cov_total, dev_states)
@@ -330,7 +330,7 @@ class FleetSimulator:
 
     @staticmethod
     def _walks(c: FleetWalk) -> tuple:
-        return c.hist.cpu().numpy(), c.hlen.cpu().numpy()
+        return c.hist.cpu().numpy(), c.hlen.cpu().numpy()  # lint: jit-ok once, at the end of the run
 
     def _result(self, nb, nst, mx, violation, t0, cov_total,
                 dev_states) -> FleetResult:

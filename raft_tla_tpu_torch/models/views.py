@@ -32,8 +32,8 @@ REGISTRY = {
                  "(exact: dead-variable elimination)",
 }
 
-# The fields a view rewrites before fingerprinting (analysis/cfglint:
-# invariants reading them are checked only up to the view).
+# The fields a view rewrites before fingerprinting (analysis/cfglint
+# checks invariants that read them only up to the view).
 VIEW_WRITES = {
     "deadvotes": ("vResp", "vGrant"),
 }

@@ -133,8 +133,9 @@ engines regardless of the gate so A/B off arms stay comparable) and
 ``dev_dedup_hits`` (cumulative rows the device set dropped pre-export;
 only present when the gate is on).
 
-Version 10 adds the live metrics layer (obs/metrics.py — gated by
-``--metrics-port`` / ``RAFT_TLA_METRICS``, never on by default):
+Version 10 adds the live metrics layer (the reference's obs/metrics.py,
+ROADMAP item 12 in the port; gated by ``--metrics-port``, never on by
+default):
 
 ``metrics_snapshot``  metrics [+ port, root]
                    (one periodic snapshot of the streaming-reducer

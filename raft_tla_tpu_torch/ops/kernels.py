@@ -74,16 +74,12 @@ _PRESCAN_RUNGS = (4, 2)
 PRESCAN_MIN_GROUP = 120
 
 
-def _force(env: str) -> str:
-    return os.environ.get(env, "auto")
-
-
 def prescan_enabled(bounds: Bounds, symmetry: tuple, device="cpu") -> bool:
     """The prescan gate: ``RAFT_TLA_PRESCAN`` on/off, else auto: on the
     CPU whenever there is symmetry; on the card iff |G| >= 120."""
     if not _PRESCAN_RUNGS or not symmetry:
         return False
-    force = _force("RAFT_TLA_PRESCAN")
+    force = os.environ.get("RAFT_TLA_PRESCAN", "auto")
     if force in ("on", "off"):
         return force == "on"
     if torch.device(device).type == "cpu":
@@ -99,7 +95,8 @@ def prescan_enabled(bounds: Bounds, symmetry: tuple, device="cpu") -> bool:
 def sigprune_enabled(bounds: Bounds, symmetry: tuple) -> bool:
     """The sig-prune gate: ``RAFT_TLA_SIGPRUNE`` on/off; auto is off, as in
     the reference."""
-    return bool(symmetry) and _force("RAFT_TLA_SIGPRUNE") == "on"
+    return bool(symmetry) and \
+        os.environ.get("RAFT_TLA_SIGPRUNE", "auto") == "on"
 
 
 def megakernel_setting() -> str:
@@ -108,7 +105,7 @@ def megakernel_setting() -> str:
     step is K1, the megakernel's counterpart, under auto and on; off (the
     reference's XLA step) is refused there (ops/pallas_step.build_step).
     On the CPU every setting runs the plain step."""
-    force = _force("RAFT_TLA_MEGAKERNEL")
+    force = os.environ.get("RAFT_TLA_MEGAKERNEL", "auto")
     return force if force in ("on", "off") else "auto"
 
 
@@ -623,7 +620,7 @@ def grouped_dispatch(bounds, s, groups, family_kernels=None):
     for fam, instances in groups:
         kern, params = table[fam]
         K = len(instances)
-        args = [torch.tensor([[getattr(a, p) for a in instances]],
+        args = [torch.tensor([[getattr(a, p) for a in instances]],  # lint: jit-ok hidden sync, ROADMAP queue B (c) 4
                              dtype=I32, device=dev) for p in params]
         sb = {f: x.unsqueeze(1).expand(B, K, *x.shape[1:])
               for f, x in s.items()}

@@ -85,8 +85,8 @@ class _Emitter:
         if owned:
             self.free.append(r)
 
-    def emit(self, op: str, a: int = 0, b: int = 0, c: int = 0,
-             operands=()) -> int:
+    def instr(self, op: str, a: int = 0, b: int = 0, c: int = 0,
+              operands=()) -> int:
         """Emit ``op`` into a new register after freeing ``operands`` (the
         interpreter reads its operands before it writes)."""
         for r, owned in operands:
@@ -99,7 +99,7 @@ class _Emitter:
         """A pinned register holding the constant ``v``."""
         v = int(P._check_i32(v))
         if v not in self.consts:
-            self.consts[v] = self.emit("CONST", v)
+            self.consts[v] = self.instr("CONST", v)
         return self.consts[v], False
 
 
@@ -149,7 +149,7 @@ class _Compiler:
         if isinstance(node, P.Name):
             f = node.field
             return _Arr(self.shapes[f], lambda idx: (
-                e.emit("LOAD", self.flat(f, idx)), True))
+                e.instr("LOAD", self.flat(f, idx)), True))
         if isinstance(node, P.Index):
             return self.index(node.field, self.value(node.idx))
         if isinstance(node, P.Neg):
@@ -170,7 +170,7 @@ class _Compiler:
         return self.reduce(node.fn, self.value(node.a))
 
     def _unary(self, op: str, ra: tuple) -> int:
-        return self.e.emit(op, ra[0], operands=(ra,))
+        return self.e.instr(op, ra[0], operands=(ra,))
 
     def index(self, field: str, i):
         shape = self.shapes[field]
@@ -178,13 +178,14 @@ class _Compiler:
         if not isinstance(i, _Arr):
             c = min(max(i + n if i < 0 else i, 0), n - 1)
             return _Arr(shape[:-1], lambda idx: (
-                self.e.emit("LOAD", self.flat(field, idx + (c,))), True))
+                self.e.instr("LOAD", self.flat(field, idx + (c,))), True))
         outer = len(shape) - 1
 
         def elem(idx):
             ri = i.elem(idx[outer:])
             base = self.flat(field, idx[:outer] + (0,))
-            return self.e.emit("LOADIX", base, n, ri[0], operands=(ri,)), True
+            return self.e.instr("LOADIX", base, n, ri[0],
+                                operands=(ri,)), True
 
         return _Arr(shape[:-1] + i.shape, elem)
 
@@ -197,8 +198,8 @@ class _Compiler:
         def elem(idx):
             ra = a.elem(_sub(idx, a.shape))
             rb = b.elem(_sub(idx, b.shape))
-            return self.e.emit(_BIN_OP[op], ra[0], rb[0],
-                               operands=(ra, rb)), True
+            return self.e.instr(_BIN_OP[op], ra[0], rb[0],
+                                operands=(ra, rb)), True
 
         return _Arr(shape, elem)
 
@@ -208,7 +209,7 @@ class _Compiler:
         for idx in _elements(a.shape):
             r = a.elem(idx)
             acc = r if acc is None else (
-                self.e.emit(op, acc[0], r[0], operands=(acc, r)), True)
+                self.e.instr(op, acc[0], r[0], operands=(acc, r)), True)
         return acc
 
     def reduce(self, fn: str, a) -> _Arr:

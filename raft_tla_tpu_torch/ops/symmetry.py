@@ -324,7 +324,7 @@ def kernel_rank_maps(bounds: Bounds, axes: tuple) -> np.ndarray:
     faithful with Value symmetry."""
     if not bounds.history or "Value" not in axes:
         return np.zeros((0,), np.int16)
-    return _rank_maps(bounds).astype(np.int16)
+    return _rank_maps(bounds).astype(np.int16)  # 10-bit ranks (< 1,024) fit int16
 
 
 def kernel_tables(bounds: Bounds, axes: tuple) -> np.ndarray:
@@ -582,7 +582,7 @@ def build_orbit_fp(bounds: Bounds, axes: tuple, consts: torch.Tensor,
     def scan(struct, keep=None):
         bh = bl = None
         for k in range(P * Q):
-            if keep is not None and not bool(keep[:, k].any()):
+            if keep is not None and not bool(keep[:, k].any()):  # lint: jit-ok plain version; the card scans in K1
                 continue
             hi, lo = fpr.fingerprint(images.image(struct, k), consts)
             hi, lo = hi.to(torch.int64) & _M32, lo.to(torch.int64) & _M32

@@ -143,7 +143,7 @@ def first_false(ok: torch.Tensor) -> torch.Tensor:
     """Index of the first false entry along the last axis (0 if none)."""
     if ok.shape[-1] == 0:
         return torch.zeros(ok.shape[:-1], dtype=torch.int64, device=ok.device)
-    return (~ok).to(torch.uint8).argmax(-1)
+    return (~ok).to(torch.uint8).argmax(-1)  # 1-bit flags as uint8 for argmax
 
 
 class Stepped(NamedTuple):
@@ -362,7 +362,7 @@ class Simulator:
             self.fetches += len(fields)
             return tuple(int(x) for x in fields)
         self.fetches += 1
-        return tuple(torch.stack([x.to(torch.int64) for x in fields])
+        return tuple(torch.stack([x.to(torch.int64) for x in fields])  # lint: jit-ok the one fused fetch a dispatch
                      .cpu().tolist())
 
     def run(self, n_behaviors: int, init_override=None,
@@ -401,7 +401,7 @@ class Simulator:
                 # invariant violation, whose walk is the one replayed
                 k = vw if vw >= 0 else dw
                 name = self.config.invariants[vi] if vw >= 0 else DEADLOCK
-                lanes, hl = w.hist[k].cpu().tolist(), int(w.hlen[k])
+                lanes, hl = w.hist[k].cpu().tolist(), int(w.hlen[k])  # lint: jit-ok once, at the violation
                 trace = replay(self.model, self.table, self.bounds,
                                init_py, lanes, hl)
                 res = SimResult(

@@ -152,6 +152,9 @@ def test_port_sources_import_neither_jax_nor_the_reference():
     files += sorted((ROOT / "tools").rglob("*.py"))     # the port's tools
     bad = [(f.name, m) for f in files for m in _imports(f) if _is_forbidden(m)]
     assert len(files) > 15 and not bad
+    # the analyzer's modules are in the scan
+    assert {"lint.py", "__main__.py", "jitlint.py", "threadlint.py",
+            "contracts.py"} <= {f.name for f in files}
 
 
 def test_running_the_port_leaves_jax_and_the_reference_unloaded(tmp_path):
@@ -174,6 +177,9 @@ def test_running_the_port_leaves_jax_and_the_reference_unloaded(tmp_path):
         "Engine(CheckConfig(bounds=Bounds(n_servers=1, n_values=1,"
         " max_term=2, max_log=0, max_msgs=1), spec='ir-election'),"
         " device='cpu').check()\n"
+        "from raft_tla_tpu_torch import lint\n"
+        f"rc |= lint.main([{cfg!r}, '--skip', 'jit', '--skip', 'thread',"
+        " '--skip', 'contract'])\n"
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.')"
         " or m == 'raft_tla_tpu' or m.startswith('raft_tla_tpu.')]\n"
         "print('LOADED', bad, 'RC', rc)\n")
@@ -183,3 +189,4 @@ def test_running_the_port_leaves_jax_and_the_reference_unloaded(tmp_path):
     assert "distinct states found" in r.stdout
     assert "behaviors generated" in r.stdout
     assert "exhaustive check of spec twophase" in r.stdout
+    assert "speclint: " in r.stdout

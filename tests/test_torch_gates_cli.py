@@ -1,6 +1,8 @@
 """The step and engine gates through the port's CLI (``--prescan``,
 ``--sig-prune``, ``--megakernel``, ``--route``, ``--device-dedup`` /
-``--devdedup``): every value accepted, with the JAX CLI's result lines;
+``--devdedup``): every value accepted, with the result lines of the JAX
+CLI's oracle (``--engine ref``, which no step gate changes: one run per
+universe, shared by the file);
 the reference's argument errors, word for word; ``--megakernel off``
 refused for the card; and the whole slice, the port's DDD engine under
 every gate against the JAX ``DDDEngine`` under the same gates on the
@@ -42,6 +44,24 @@ def _gates_restored(monkeypatch):
         monkeypatch.setenv(env, "auto")
 
 
+@pytest.fixture(scope="module")
+def oracle(tmp_path_factory):
+    """The JAX CLI's oracle on the test cfg, run once per universe:
+    ``symmetry -> (exit code, result lines)``."""
+    cfg = write_cfg(tmp_path_factory.mktemp("oracle") / "m.cfg")
+    runs = {}
+
+    def run(symmetry: bool) -> tuple:
+        if symmetry not in runs:
+            jcode, jout, _ = _run(jcli.main, [
+                cfg, "--engine", "ref", *BASE,
+                *(["--symmetry"] if symmetry else [])])
+            runs[symmetry] = (jcode, _result_lines(jout))
+        return runs[symmetry]
+
+    return run
+
+
 @pytest.mark.parametrize("gates", [
     ["--prescan", "on", "--sig-prune", "on", "--device-dedup", "hash",
      "--route", "200", "--symmetry"],
@@ -52,21 +72,16 @@ def _gates_restored(monkeypatch):
     ["--megakernel", "off", "--device-dedup", "on", "--device-dedup",
      "auto", "--sig-prune", "on"],
 ], ids=["all-on", "off-sort", "megakernel-on", "megakernel-off"])
-def test_gate_flags_print_the_jax_lines(tmp_path, gates):
+def test_gate_flags_print_the_jax_lines(tmp_path, gates, oracle):
     """The port's DDD engine on the CPU under the gates, against the JAX
-    CLI's oracle with the same gates (without ``--route``, which it takes
-    for ``--engine ddd`` only): the same lines, exit 0; the gates set
-    their environment variables."""
+    CLI's oracle on the same universe: the same lines, exit 0; the gates
+    set their environment variables."""
     cfg = write_cfg(tmp_path / "m.cfg")
     code, out, _ = _run(cli.main, [cfg, "--device", "cpu", "--engine",
                                    "ddd", *BASE, *gates])
-    jgates = [g for k, g in enumerate(gates) if g != "--route" and
-              (k == 0 or gates[k - 1] != "--route")]
-    jgates = ["--device-dedup" if g == "--devdedup" else g for g in jgates]
-    jcode, jout, _ = _run(jcli.main, [cfg, "--engine", "ref", *BASE,
-                                      *jgates])
+    jcode, jlines = oracle("--symmetry" in gates)
     assert code == jcode == cli.EXIT_OK
-    assert _result_lines(out) == _result_lines(jout)
+    assert _result_lines(out) == jlines
     want = "1514" if "--symmetry" in gates else "3014"
     assert f"{want} distinct states found" in out
     flag_env = dict(zip(("--prescan", "--sig-prune", "--megakernel",

@@ -29,24 +29,48 @@ from test_torch_symmetry import FULL3, _reach
 torch.set_num_threads(1)
 
 INVS = ("NoTwoLeaders", "LogMatching")
+K_ROWS = 24
+AXES, VIEW = ("Server", "Value"), "deadvotes"
 
 
-@pytest.mark.parametrize("k_rows", [640, 24], ids=["fits", "overflow"])
-def test_routed_step_matches_jax(monkeypatch, k_rows):
-    """Server x Value, the deadvotes view and sig-prune on, every third
-    row not live: every output equal on every slot (unused slots hold lane
-    N - 1's values in both), ``route_ovf`` and ``n_en`` equal; the live
-    slots hold the dense step's values at ``cidx``."""
+@pytest.fixture(scope="module")
+def jax_routed():
+    """The reference's routed step, compiled once for the file (its
+    slot count is static; both cases run it on other inputs)."""
+    mp = pytest.MonkeyPatch()
+    mp.setenv("RAFT_TLA_SIGPRUNE", "on")        # read at construction
+    try:
+        fn = jax.jit(jkernels.build_step_routed(
+            JBounds(**FULL3), "full", INVS, AXES, k_rows=K_ROWS, view=VIEW,
+            megakernel=False))
+    finally:
+        mp.undo()
+    return fn
+
+
+@pytest.mark.parametrize("case", ["fits", "overflow"])
+def test_routed_step_matches_jax(monkeypatch, case, jax_routed):
+    """Server x Value, the deadvotes view and sig-prune on, 24 slots:
+    with every third row not live (more enabled lanes than slots), and
+    with only the leading rows whose enabled lanes fit; every output equal
+    on every slot (unused slots hold lane N - 1's values in both),
+    ``route_ovf`` and ``n_en`` equal; the live slots hold the dense step's
+    values at ``cidx``."""
     monkeypatch.setenv("RAFT_TLA_SIGPRUNE", "on")
     jb, b = JBounds(**FULL3), Bounds(**FULL3)
-    axes, view = ("Server", "Value"), "deadvotes"
+    k_rows, axes, view = K_ROWS, AXES, VIEW
     rows = _reach(jb, "full", 5, 24)
-    row_ok = np.arange(rows.shape[0]) % 3 != 1
+    dense = kernels.build_step(b, "full", INVS, axes, view)(
+        torch.as_tensor(rows))
+    if case == "overflow":
+        row_ok = np.arange(rows.shape[0]) % 3 != 1
+    else:
+        per_row = dense["valid"].sum(1).numpy()
+        row_ok = np.cumsum(per_row) <= k_rows
+        assert 0 < per_row[row_ok].sum() <= k_rows and not row_ok.all()
     got = kernels.build_step_routed(b, "full", INVS, axes, k_rows, view)(
         torch.as_tensor(rows), torch.as_tensor(row_ok))
-    want = jax.jit(jkernels.build_step_routed(
-        jb, "full", INVS, axes, k_rows=k_rows, view=view,
-        megakernel=False))(jnp.asarray(rows), jnp.asarray(row_ok))
+    want = jax_routed(jnp.asarray(rows), jnp.asarray(row_ok))
     assert set(got) == set(want)
     for k in want:
         g, w = got[k].numpy(), np.asarray(want[k])
@@ -55,9 +79,7 @@ def test_routed_step_matches_jax(monkeypatch, k_rows):
         assert np.array_equal(g, w), k
     n_live = int((np.asarray(want["valid"]) & row_ok[:, None]).sum())
     assert int(got["n_en"]) == n_live
-    assert bool(got["route_ovf"]) == (n_live > k_rows)
-    dense = kernels.build_step(b, "full", INVS, axes, view)(
-        torch.as_tensor(rows))
+    assert bool(got["route_ovf"]) == (n_live > k_rows) == (case == "overflow")
     cv = got["cvalid"]
     src = got["cidx"][cv].long()
     assert torch.equal(got["cfp_hi"][cv], dense["fp_hi"].reshape(-1)[src])
