@@ -20,17 +20,21 @@ search without error (models/liveness.py): ``host`` and ``ref`` without a
 VIEW build the graph with the interpreter; SYMMETRY, a VIEW or ``--engine
 ddd`` build it from the DDD engine's store; otherwise the device engine's.
 
-Four engines: ``--engine device`` (the default: the whole search in the
-card's memory), ``--engine ddd`` (exact dedup on the host, the card expands
-and filters; ``--block``, ``--retention``, ``--keep-levels``,
-``--deadline``, ``--host-dedup``, ``--prefetch``, ``--device-dedup``;
-other engines ignore them, as the reference's do, while ``--route K``
-needs it), ``--engine host`` (the step per chunk on the
-card, a fingerprint set on the host) and ``--engine ref`` (the
-pure-Python oracle).  ``--stats`` (one progress line per segment),
-``--checkpoint``/``--resume`` and the run-event log (``--events PATH``,
-with ``--phase-timers`` and ``--trace``; obs/) need ``device`` or
-``ddd``.  ``--emit-tlc DIR`` writes the run's TLC twin, then runs it.
+Six engines: ``--engine device`` (the default: the whole search in the
+card's memory), ``--engine paged`` (the live BFS window in a ring on the
+card, every state paged out to the host store; ``--ring``),
+``--engine streamed`` (the frontier streamed from the host store in
+blocks, the ring only buffers appends; ``--ring``), ``--engine ddd``
+(exact dedup on the host, the card expands and filters; ``--block``,
+``--retention``, ``--keep-levels``, ``--deadline``, ``--host-dedup``,
+``--prefetch``, ``--device-dedup``; other engines ignore them, as the
+reference's do, while ``--route K`` and ``--deadline`` need it),
+``--engine host`` (the step per chunk on the card, a fingerprint set on
+the host) and ``--engine ref`` (the pure-Python oracle).  ``--stats`` (one
+progress line per segment), ``--checkpoint``/``--resume`` and the
+run-event log (``--events PATH``, with ``--phase-timers`` and ``--trace``;
+obs/) need a device-class engine (``device``, ``paged``, ``streamed``,
+``ddd``).  ``--emit-tlc DIR`` writes the run's TLC twin, then runs it.
 
 The reference's step gates take its values and set its environment
 variables process-wide, read at step construction by every engine:
@@ -78,7 +82,6 @@ EXIT_ERROR = 1
 _LATER = "is not ported to raft_tla_tpu_torch yet (ROADMAP.md queue A: {})"
 _PARALLEL = _LATER.format("item 11, parallel engines")
 _NOT_PORTED = {
-    "--ring": _LATER.format("item 9, the paged and streamed engines"),
     "--reshard-to": _PARALLEL, "--reshard-cap": _PARALLEL,
     "--devices": _PARALLEL, "--seg-chunks": _PARALLEL,
     "--cp-lanes": _PARALLEL, "--slices": _PARALLEL,
@@ -86,8 +89,9 @@ _NOT_PORTED = {
         "item 12, serving (the warm-start cache)"),
     "--cpu": "is spelled --device cpu in raft_tla_tpu_torch",
 }
-ENGINES = ("device", "ddd", "host", "ref")
-_DEVICE_ENGINES = ("device", "ddd")    # the reference's device-class engines
+ENGINES = ("device", "paged", "streamed", "ddd", "host", "ref")
+# the reference's device-class engines
+_DEVICE_ENGINES = ("device", "paged", "streamed", "ddd")
 
 
 def build_argparser() -> argparse.ArgumentParser:
@@ -105,11 +109,15 @@ def build_argparser() -> argparse.ArgumentParser:
                         "host; cfg binds CONSTANT RM)")
     p.add_argument("--engine", default="device",
                    help="device (the reference's default: the search in "
-                        "the card's memory), ddd (delayed duplicate "
-                        "detection: exact dedup on the host, the card "
-                        "expands and filters), host (the step per chunk "
-                        "on the card, dedup in a host set) or ref (the "
-                        "pure-Python oracle)")
+                        "the card's memory), paged (a ring of the live BFS "
+                        "window on the card, every state paged out to the "
+                        "native host store: capacity bounded by host "
+                        "memory), streamed (the frontier streamed from the "
+                        "host store in blocks: no live-window ceiling), ddd "
+                        "(delayed duplicate detection: exact dedup on the "
+                        "host, the card expands and filters), host (the "
+                        "step per chunk on the card, dedup in a host set) "
+                        "or ref (the pure-Python oracle)")
     p.add_argument("--max-term", type=int, default=3,
                    help="CONSTRAINT: currentTerm[i] <= N (default 3)")
     p.add_argument("--max-log", type=int, default=2,
@@ -132,8 +140,17 @@ def build_argparser() -> argparse.ArgumentParser:
     p.add_argument("--chunk", type=int, default=1024,
                    help="frontier states expanded per step")
     p.add_argument("--cap", type=int, default=1 << 20,
-                   help="distinct-state capacity (store rows)")
+                   help="expected distinct-state capacity: store rows for "
+                        "device; fingerprint-table sizing (2 slots per "
+                        "state) for paged and streamed, whose store is "
+                        "bounded by host memory")
     p.add_argument("--levels", type=int, default=256, help="max BFS depth")
+    p.add_argument("--ring", type=int, default=None,
+                   help="device ring rows for --engine paged (power of "
+                        "two; must hold the widest current+next BFS level "
+                        "pair; default: derived from --cap, at most 4M) "
+                        "or --engine streamed (appends between pageouts; "
+                        "default 4M)")
     p.add_argument("--block", type=int, default=None, metavar="ROWS",
                    help="--engine ddd: frontier rows uploaded per block "
                         "(default 2^20; must match the run when resuming)")
@@ -443,8 +460,8 @@ def run(argv=None) -> tuple:
             p.error(f"{flag} {why}")
     if args.engine not in ENGINES:
         p.error(f"--engine {args.engine} is not ported to raft_tla_tpu_torch "
-                "yet (ROADMAP.md queue A: items 9 and 11, the paged, "
-                f"streamed and parallel engines); only {', '.join(ENGINES)}")
+                "yet (ROADMAP.md queue A: item 11, the parallel engines); "
+                f"only {', '.join(ENGINES)}")
     # The reference's engine gates (its check.main), with its exit code 2.
     if args.view and args.simulate:
         p.error("--view does not compose with --simulate (random walks "
@@ -620,6 +637,11 @@ def run(argv=None) -> tuple:
                                checkpoint=args.checkpoint,
                                checkpoint_every_s=args.checkpoint_every,
                                resume=args.resume, deadline_s=args.deadline)
+        elif args.engine in ("paged", "streamed"):
+            result = eng.check(on_progress=_stats_cb(args),
+                               checkpoint=args.checkpoint,
+                               checkpoint_every_s=args.checkpoint_every,
+                               resume=args.resume)
         else:
             result = eng.check(checkpoint=args.checkpoint,
                                checkpoint_every_s=args.checkpoint_every,
@@ -698,12 +720,12 @@ def parse_wf(text: str) -> tuple:
 def liveness_graph(args, config):
     """The behavior graph of a liveness check, by the reference's routing:
     the interpreter for ``host``/``ref`` without a VIEW; the DDD engine's
-    store under SYMMETRY, a VIEW or ``--engine ddd``; else the device
-    engine's."""
+    store under SYMMETRY, a VIEW or ``--engine ddd|streamed``; else (the
+    device and paged engines) the device engine's."""
     from raft_tla_tpu_torch.models import liveness
     if args.engine in ("host", "ref") and not config.view:
         return liveness.explore_graph(config)
-    if config.view or config.symmetry or args.engine == "ddd":
+    if config.view or config.symmetry or args.engine in ("ddd", "streamed"):
         from raft_tla_tpu_torch.ddd_engine import DDDCapacities
         from raft_tla_tpu_torch.models import spec as S
         if config.symmetry:
@@ -794,6 +816,28 @@ def make_engine(args, config):
     if args.engine == "host":
         from raft_tla_tpu_torch.engine import Engine
         return Engine(config, device=args.device)
+    if args.engine in ("paged", "streamed"):
+        from raft_tla_tpu_torch.models import spec as S
+        table = 1 << max(1, (2 * args.cap - 1).bit_length())
+        if args.engine == "streamed":
+            from raft_tla_tpu_torch.streamed_engine import (
+                StreamedCapacities, StreamedEngine)
+            ring = args.ring if args.ring is not None else 1 << 22
+            return StreamedEngine(config, StreamedCapacities(
+                block=1 << 20, ring=ring, table=table, levels=args.levels),
+                device=args.device)
+        from raft_tla_tpu_torch.paged_engine import (PagedCapacities,
+                                                     PagedEngine)
+        A = len(S.action_table(config.bounds, config.spec))
+        if args.ring is not None:
+            # an explicit ring passes through untouched: the engine refuses
+            # an undersized one loudly, never resizes it
+            ring = args.ring
+        else:
+            ring = max(1 << min(22, max(12, (args.cap // 4).bit_length())),
+                       1 << (2 * args.chunk * A - 1).bit_length())
+        return PagedEngine(config, PagedCapacities(
+            ring=ring, table=table, levels=args.levels), device=args.device)
     if args.engine == "ddd":
         from raft_tla_tpu_torch.ddd_engine import DDDCapacities, DDDEngine
         from raft_tla_tpu_torch.models import spec as S

@@ -143,6 +143,7 @@
 // `valid` is set); the plain step writes zeros there.
 #include <cuda_runtime.h>
 
+#include <climits>
 #include <cstdint>
 
 #include "fp.cuh"
@@ -1667,6 +1668,79 @@ int rows_log2(int B) {
   return lg;
 }
 
+// -- the orbit key of given rows ---------------------------------------------
+//
+// Replaces: raft_tla_tpu/ops/symmetry.py:557 `build_orbit_fp` — XLA code,
+// not a Pallas kernel: the dedup key of the IR-compiled Raft step under
+// SYMMETRY or a VIEW (ops/orbit_key.py; its plain version is the port's
+// ops/symmetry.build_orbit_fp after the view).  K1's dedup-key stage on
+// rows it did not compute: each row is a canonical successor, unviewed,
+// and its key is K1's, min over g of fp(canonicalize(g(view(s)))), by the
+// same `scan_pair` (full scan).  A group of `split` threads owns a row
+// (split a power of two, at most 32 and at most P), each scanning every
+// split-th server permutation; the block's rows are copied into shared
+// memory with the group table beside them.  A first launch
+// (orbit_list_kernel) keys the invalid rows 0 and lists the valid ones,
+// so the scan's blocks hold valid rows alone: no group idles on an
+// invalid row while its warp scans.
+__global__ void __launch_bounds__(kThreads)
+    orbit_list_kernel(const uint8_t* __restrict__ valid, long long n,
+                      int* __restrict__ list, int* __restrict__ count,
+                      int* __restrict__ out_hi, int* __restrict__ out_lo) {
+  const long long i = static_cast<long long>(blockIdx.x) * kThreads +
+                      threadIdx.x;
+  const int lane = threadIdx.x & 31;
+  const bool v = i < n && valid[i];
+  if (i < n && !v) {
+    out_hi[i] = 0;
+    out_lo[i] = 0;
+  }
+  const unsigned m = __ballot_sync(kFull, v);
+  int base = 0;
+  if (lane == 0 && m) base = atomicAdd(count, __popc(m));
+  base = __shfl_sync(kFull, base, 0);
+  if (v) list[base + __popc(m & ((1u << lane) - 1u))] = static_cast<int>(i);
+}
+
+// `list`, `count`: the valid rows' indices and their number, from
+// orbit_list_kernel.
+__global__ void __launch_bounds__(kThreads)
+    orbit_key_kernel(const int* __restrict__ rows,
+                     const int* __restrict__ list,
+                     const int* __restrict__ count, int lg_split,
+                     const Consts cs, const int8_t* __restrict__ groupg,
+                     int P, int Q, int nv, const int16_t* __restrict__ rmaps,
+                     int view, int* __restrict__ out_hi,
+                     int* __restrict__ out_lo) {
+  extern __shared__ int sm[];
+  const int split = 1 << lg_split, per = kThreads >> lg_split;
+  const int total = *count;
+  const int row0 = blockIdx.x * per;
+  if (row0 >= total) return;             // past the valid rows: the block
+  int* slots = sm;                                       // per x kWp
+  int8_t* group = reinterpret_cast<int8_t*>(slots + per * kWp);
+  const int n_group = P * 2 * N + Q * nv;
+  const int tid = threadIdx.x;
+  const int nrows = total - row0 < per ? total - row0 : per;
+  for (int t = tid; t < nrows * W; t += kThreads)
+    slots[(t / W) * kWp + t % W] =
+        rows[static_cast<long long>(list[row0 + t / W]) * W + t % W];
+  for (int t = tid; t < n_group; t += kThreads) group[t] = groupg[t];
+  __syncthreads();
+  const int r = tid >> lg_split, sub = tid & (split - 1);
+  const bool on = r < nrows;
+  const Group g{group, group + P * 2 * N, rmaps, P, Q, nv, view};
+  int scanned = 0, probes = 0;
+  const uint64_t key =
+      scan_pair(*reinterpret_cast<const St*>(slots + r * kWp), g, cs, on,
+                false, sub, split, &scanned, &probes);
+  if (on && sub == 0) {
+    const int o = list[row0 + r];
+    out_hi[o] = static_cast<int>(key >> 32);
+    out_lo[o] = static_cast<int>(key & 0xFFFFFFFFu);
+  }
+}
+
 }  // namespace
 
 extern "C" int rt_step_width() { return W; }
@@ -1737,5 +1811,54 @@ extern "C" int rt_step_launch(const int* vecs, int B, const int* table, int A,
   step_kernel<<<blocks, kThreads, smem, static_cast<cudaStream_t>(stream)>>>(
       vecs, B, lgR, table, A, cs, group, P, Q, nv, rmaps, view, inv_codes,
       n_inv, prog, lim, variant, stats, out);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// The orbit key of n given rows (orbit_key_kernel): `rows` int32 [n, W] on
+// the device, canonical successors, unviewed; `valid`: n flags on the
+// device (a row flagged 0 is skipped and keyed 0); `work`: n + 1 ints on
+// the device for the valid rows' list and count; `c1`, `c2`,
+// `group`, P, Q, nv, `rmaps` and `view` as for rt_step_launch.  Writes the
+// keys' hi and lo words as int32 bit patterns.
+extern "C" int rt_orbit_key_launch(const int* rows, const uint8_t* valid,
+                                   int* work, long long n,
+                                   const uint32_t* c1, const uint32_t* c2,
+                                   const int8_t* group, int P, int Q, int nv,
+                                   const int16_t* rmaps, int view, int* hi,
+                                   int* lo, void* stream) {
+  if (n < 0 || n > INT_MAX || P < 1 || Q < 1 || nv < 0 || nv > kMaxValues ||
+      (nv == 0 && Q != 1) || valid == nullptr || work == nullptr)
+    return static_cast<int>(cudaErrorInvalidValue);
+#if RT_E > 0
+  if (nv > 0 && rmaps == nullptr) return static_cast<int>(cudaErrorInvalidValue);
+#endif
+  if (n == 0) return 0;
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  Consts cs;
+  for (int w = 0; w < W; ++w) {
+    cs.c1[w] = c1[w];
+    cs.c2[w] = c2[w];
+  }
+  int* list = work;
+  int* count = work + n;
+  cudaError_t err = static_cast<cudaError_t>(
+      cudaMemsetAsync(count, 0, sizeof(int), st));
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const unsigned lblocks = static_cast<unsigned>((n + kThreads - 1) / kThreads);
+  orbit_list_kernel<<<lblocks, kThreads, 0, st>>>(valid, n, list, count, hi,
+                                                  lo);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return static_cast<int>(err);
+  int lg_split = 0;
+  while (lg_split < 5 && (2 << lg_split) <= P) ++lg_split;
+  const int per = kThreads >> lg_split;
+  const unsigned blocks = static_cast<unsigned>((n + per - 1) / per);
+  const size_t smem = static_cast<size_t>(per) * kWp * 4 + P * 2 * N + Q * nv;
+  err = cudaFuncSetAttribute(orbit_key_kernel,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             static_cast<int>(smem));
+  if (err != cudaSuccess) return static_cast<int>(err);
+  orbit_key_kernel<<<blocks, kThreads, smem, st>>>(
+      rows, list, count, lg_split, cs, group, P, Q, nv, rmaps, view, hi, lo);
   return static_cast<int>(cudaGetLastError());
 }

@@ -99,14 +99,17 @@ FAIL_WIDTH = 1      # a successor exceeded a tensor-encoding capacity
 FAIL_PROBE = 2      # linear probe exceeded _MAX_PROBE (table too full)
 FAIL_STORE = 4      # more distinct states than Capacities.n_states
 FAIL_LEVEL = 8      # BFS deeper than Capacities.levels
+FAIL_RING = 16      # paged engine: live BFS window outgrew the ring
 FAIL_ROUTE = 32     # DDD engine: the routed step's slots overflowed
-FAIL_INDEX = 64     # DDD engine: a discovery index past its ceiling
+FAIL_INDEX = 64     # DDD and paged engines: a discovery index past its
+                    # ceiling
 
 _FAIL_TEXT = {
     FAIL_WIDTH: "state-width overflow (encoding capacity exceeded)",
     FAIL_PROBE: "fingerprint-table probe overflow (table too full)",
     FAIL_STORE: "state-store capacity exceeded",
     FAIL_LEVEL: "BFS level capacity exceeded",
+    FAIL_RING: "live BFS window exceeded the HBM ring",
     FAIL_ROUTE: "routing budget exceeded (all_to_all halo or EP "
                 "route_rows too small)",
     FAIL_INDEX: "discovery index past the engine ceiling",
@@ -126,6 +129,64 @@ def aggregate_coverage(table, cov) -> Counter:
         if cov[a]:
             out[inst.family] += int(cov[a])
     return out
+
+
+_ROWS = {"store": np.int32, "parent": np.int32, "lane": np.int32,
+         "conflag": bool}
+
+
+def carry_arrays(c: dict, rows: int, A: int,
+                 fields: tuple = CARRY_FIELDS) -> list:
+    """A carry dict as the reference's ``fields`` arrays (``Carry``'s
+    ``c0..c16`` by default, or the streamed engine's ``SCarry``): the first
+    ``rows`` rows of the store (or ring) and its links, the table without
+    its sink row, the counters as the reference's dtypes."""
+    out = []
+    for f in fields:
+        x = c[f]
+        if f in _ROWS:
+            out.append(x[:rows].cpu().numpy())  # lint: jit-ok checkpoint snapshot, one copy a carry array
+        elif f in ("tbl_hi", "tbl_lo"):
+            out.append(x[:-1].cpu().numpy().view(np.uint32))  # lint: jit-ok checkpoint snapshot, one copy a carry array
+        elif f == "n_trans":
+            out.append(np.array([x & 0xFFFFFFFF, x >> 32], np.uint32))
+        elif f == "cov":
+            out.append(x[:A].cpu().numpy().astype(np.int32))  # lint: jit-ok checkpoint snapshot, one copy a carry array
+        elif f == "levels":
+            out.append(x.astype(np.int32).copy())
+        else:
+            out.append(np.int32(x))
+    return out
+
+
+def load_carry(c: dict, arrays: list, rows: int, A: int,
+               fields: tuple = CARRY_FIELDS) -> dict:
+    """Fill the freshly allocated carry dict ``c`` from the reference's
+    ``fields`` arrays (shapes checked by the caller); returns it."""
+    dev = c["store"].device
+    for f, x in zip(fields, arrays):
+        x = np.asarray(x)
+        if f in _ROWS:
+            c[f][:rows] = torch.as_tensor(x.astype(_ROWS[f]), device=dev)
+        elif f in ("tbl_hi", "tbl_lo"):
+            c[f][:x.shape[0]] = torch.as_tensor(
+                x.astype(np.uint32).view(np.int32), device=dev)
+        elif f == "n_trans":
+            c[f] = n_trans_of(x)
+        elif f == "cov":
+            c[f][:A] = torch.as_tensor(x.astype(np.int64), device=dev)
+        elif f == "levels":
+            c[f] = x.astype(np.int32).copy()
+        else:
+            c[f] = int(x)
+    return c
+
+
+def n_trans_of(a) -> int:
+    """The transition count of a checkpoint's ``n_trans``: the reference's
+    two uint32 limbs (low, high), or one legacy int32."""
+    nt = np.asarray(a).astype(np.uint64).reshape(-1)
+    return int(nt[0]) if nt.size == 1 else int(nt[0]) | int(nt[1]) << 32
 
 
 class SyncCounter:
@@ -298,26 +359,7 @@ class DeviceEngine:
 
     def carry_to_numpy(self) -> list:
         """The carry as the reference's ``Carry`` arrays ``c0..c16``."""
-        c, Ncap = self.carry, self.caps.n_states
-
-        def u32(t):
-            return t.cpu().numpy().view(np.uint32)
-
-        lo = np.uint32(c["n_trans"] & 0xFFFFFFFF)
-        hi = np.uint32(c["n_trans"] >> 32)
-        return [
-            c["store"][:Ncap].cpu().numpy(),
-            c["parent"][:Ncap].cpu().numpy(),
-            c["lane"][:Ncap].cpu().numpy(),
-            c["conflag"][:Ncap].cpu().numpy(),
-            u32(c["tbl_hi"][:-1]), u32(c["tbl_lo"][:-1]),
-            np.int32(c["n_states"]), np.int32(c["lvl_start"]),
-            np.int32(c["lvl_end"]), np.int32(c["viol_g"]),
-            np.int32(c["viol_i"]), np.array([lo, hi], np.uint32),
-            c["cov"][:self.A].cpu().numpy().astype(np.int32),
-            np.int32(c["fail"]), c["levels"].astype(np.int32).copy(),
-            np.int32(c["lvl"]), np.int32(c["c"]),
-        ]
+        return carry_arrays(self.carry, self.caps.n_states, self.A)
 
     def carry_from_jax(self, arrays) -> None:
         """Adopt a carry given as the reference's ``Carry`` arrays."""
@@ -330,23 +372,7 @@ class DeviceEngine:
                 or a[14].shape != (self.caps.levels,):
             raise ValueError("carry shapes do not match this engine's "
                              "capacities and layout")
-        c = self._alloc()
-        dev = self.device
-        c["store"][:Ncap] = torch.as_tensor(a[0].astype(np.int32), device=dev)
-        c["parent"][:Ncap] = torch.as_tensor(a[1].astype(np.int32), device=dev)
-        c["lane"][:Ncap] = torch.as_tensor(a[2].astype(np.int32), device=dev)
-        c["conflag"][:Ncap] = torch.as_tensor(a[3].astype(bool), device=dev)
-        for k, x in (("tbl_hi", a[4]), ("tbl_lo", a[5])):
-            c[k][:TB] = torch.as_tensor(
-                x.astype(np.uint32).view(np.int32), device=dev)
-        nt = a[11].astype(np.uint64).reshape(-1)
-        n_trans = int(nt[0]) if nt.size == 1 else int(nt[0]) | int(nt[1]) << 32
-        c["cov"][:self.A] = torch.as_tensor(a[12].astype(np.int64), device=dev)
-        c.update(n_states=int(a[6]), lvl_start=int(a[7]), lvl_end=int(a[8]),
-                 viol_g=int(a[9]), viol_i=int(a[10]), n_trans=n_trans,
-                 fail=int(a[13]), levels=a[14].astype(np.int32).copy(),
-                 lvl=int(a[15]), c=int(a[16]))
-        self.carry = c
+        self.carry = load_carry(self._alloc(), a, Ncap, self.A)
 
     def save_checkpoint(self, path: str, init_key: tuple) -> None:
         """Snapshot the carry in the reference's format (digest-pinned)."""

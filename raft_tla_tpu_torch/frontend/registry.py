@@ -22,10 +22,10 @@ Raft resolves to :class:`RaftModel`: K1 (``ops/pallas_step``) on a CUDA
 device and the plain step on the CPU.  ``ir-full`` / ``ir-election`` /
 ``ir-replication`` are the same model stepped through the
 ``frontend/raft_ir``-compiled family kernels instead: torch ops whose rows
-K2 keys on a CUDA device (the reference's XLA path), the plain fingerprint
-on the CPU.  On a CUDA device they refuse SYMMETRY and VIEWs, whose orbit
-key on the card lives inside K1 alone (ROADMAP.md queue A item 10's
-remainder); on the CPU they key with the plain orbit key.  ``twophase``
+K2 keys on a CUDA device (the reference's XLA path), or, under SYMMETRY or
+a VIEW, the orbit-key entry of K1's library (ops/orbit_key.py, K1's
+dedup-key stage on given rows); the plain fingerprint or orbit key on the
+CPU.  ``twophase``
 resolves to the bundled two-phase-commit spec, compiled entirely from
 frontend declarations.
 
@@ -74,18 +74,10 @@ class RaftModel:
 
     def build_step(self, config: CheckConfig, device="cuda"):
         """The fused step for ``device``: K1, or with ``use_ir`` the
-        IR-compiled torch step keyed by K2, on a CUDA device; the plain
-        step (hand or IR kernels) on the CPU."""
-        device = torch.device(device)
+        IR-compiled torch step keyed by K2 (by the orbit-key kernel under
+        SYMMETRY or a VIEW), on a CUDA device; the plain step (hand or IR
+        kernels) on the CPU."""
         b, invs = config.bounds, tuple(config.invariants)
-        if self.use_ir and device.type == "cuda" and (config.symmetry
-                                                      or config.view):
-            raise ValueError(
-                f"spec {self.name!r} under SYMMETRY or a VIEW is not ported "
-                "to the card yet: its orbit key lives inside K1 alone "
-                "(ROADMAP.md queue A: item 10, the IR-compiled Raft under "
-                "symmetry); run it with device='cpu' or the hand-written "
-                f"spec {self.sub!r}")
         device = _cuda_device(device)
         if not self.use_ir:
             from raft_tla_tpu_torch.ops import pallas_step
@@ -99,8 +91,14 @@ class RaftModel:
             return kernels.build_step(b, self.sub, invs,
                                       tuple(config.symmetry), config.view,
                                       family_kernels=fk)
-        return kernels.build_step(b, self.sub, invs, family_kernels=fk,
-                                  keyer=pallas_fp.fingerprint_rows)
+        axes = tuple(config.symmetry)
+        if axes or config.view:
+            from raft_tla_tpu_torch.ops import orbit_key
+            keyer = orbit_key.build_keyer(b, axes, config.view)
+        else:
+            keyer = pallas_fp.fingerprint_rows
+        return kernels.build_step(b, self.sub, invs, axes, config.view,
+                                  family_kernels=fk, keyer=keyer)
 
     def init_py(self, bounds):
         from raft_tla_tpu_torch.models import interp

@@ -725,11 +725,15 @@ def build_step(bounds: Bounds, spec: str = "full", invariants: tuple = (),
     are always those of the full, unviewed successor (the reference's
     ``apply_stages``).  ``family_kernels`` swaps the hand-written family
     kernels for others of the same contract (:func:`grouped_dispatch`);
-    ``keyer(rows int32[N, W]) -> (hi, lo)``, e.g. K2
-    (ops/pallas_fp.fingerprint_rows), replaces the plain fingerprint of the
-    keys without symmetry.  ``prescan`` and ``sigprune`` choose the orbit
-    scan's variants (None: their gates, :func:`prescan_enabled` with the
-    CPU's rule and :func:`sigprune_enabled`); the keys are the same.
+    ``keyer`` replaces the plain key: it takes the packed, unviewed
+    successors and returns their dedup keys, the view and the orbit minimum
+    its own.  Without symmetry or a view it is called ``keyer(rows int32[N,
+    W]) -> (hi, lo)`` (K2, ops/pallas_fp.fingerprint_rows); with either,
+    ``keyer(rows, valid bool[N])``, which keys the valid lanes alone and
+    gives the others 0 (the orbit-key kernel, ops/orbit_key.build_keyer).
+    ``prescan`` and ``sigprune`` choose the plain orbit scan's variants
+    (None: their gates, :func:`prescan_enabled` with the CPU's rule and
+    :func:`sigprune_enabled`); the keys are the same.
     """
     lay = st.Layout.of(bounds)
     expand = build_expand(bounds, spec, family_kernels)
@@ -747,13 +751,18 @@ def build_step(bounds: Bounds, spec: str = "full", invariants: tuple = (),
         B, dev = vecs.shape[0], vecs.device
         if dev not in consts:
             consts[dev] = fpr.torch_constants(lay.width, dev)
-            if symmetry:
+            if symmetry and keyer is None:
                 orbit[dev] = sym.build_orbit_fp(bounds, symmetry, consts[dev],
                                                 prune=sigprune)
         succs, valid, ovf = expand(st.unpack(vecs.to(I32), lay))
         svecs = st.pack(succs)
         ksuccs = viewer(succs) if viewer else succs
-        if symmetry and prescan:
+        if keyer is not None:
+            flat = svecs.reshape(-1, lay.width)
+            keys = keyer(flat, valid.reshape(-1)) if symmetry or viewer \
+                else keyer(flat)
+            fp_hi, fp_lo = (k.reshape(valid.shape) for k in keys)
+        elif symmetry and prescan:
             # raw keys of the packed, unviewed successors: raw grouping only
             # refines canonical equality; invalid lanes form one all-ones
             # group
@@ -771,11 +780,7 @@ def build_step(bounds: Bounds, spec: str = "full", invariants: tuple = (),
             fp_lo = torch.where(valid, fp_lo, 0)
         else:
             ksvecs = st.pack(ksuccs) if viewer else svecs
-            if keyer is None:
-                fp_hi, fp_lo = fpr.fingerprint(ksvecs, consts[dev])
-            else:
-                fp_hi, fp_lo = (k.reshape(valid.shape) for k in keyer(
-                    ksvecs.reshape(-1, lay.width)))
+            fp_hi, fp_lo = fpr.fingerprint(ksvecs, consts[dev])
         if inv_fns:
             inv_ok = torch.stack([f(succs) for f in inv_fns], dim=-1)
         else:

@@ -102,7 +102,7 @@ def test_cli_refuses_what_is_not_ported(tmp_path):
     cfg = write_cfg(tmp_path / "m.cfg")
     # every reference flag the port lacks names its ROADMAP item (--cpu:
     # its spelling here)
-    for flag in ("--ring", "--devices", "--seg-chunks", "--reshard-cap",
+    for flag in ("--devices", "--seg-chunks", "--reshard-cap",
                  "--cp-lanes", "--slices", "--compile-cache", "--cpu"):
         for argv in ([cfg, flag, "x"], [cfg, flag]):
             err = io.StringIO()

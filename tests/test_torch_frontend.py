@@ -239,5 +239,8 @@ def test_ir_election_host_engine_equals_election():
         r = Engine(cfg, device="cpu").check()
         sym[spec] = (r.n_states, r.diameter, r.n_transitions)
     assert sym["election"] == sym["ir-election"] == (1514, 17, 2675)
-    with pytest.raises(ValueError, match="ROADMAP.md queue A: item 10"):
-        registry.resolve_model("ir-election").build_step(cfg, "cuda")
+    # on the card the orbit-key kernel keys it; without a GPU, asking for
+    # cuda raises as every entry point does, never a refusal of the spec
+    if not torch.cuda.is_available():
+        with pytest.raises(RuntimeError, match="torch sees no GPU"):
+            registry.resolve_model("ir-election").build_step(cfg, "cuda")

@@ -32,6 +32,10 @@ enum { cudaSuccess = 0, cudaErrorInvalidValue = 1 };
 enum { cudaFuncAttributeMaxDynamicSharedMemorySize = 8 };
 template <class F> int cudaFuncSetAttribute(F, int, int) { return 0; }
 inline int cudaGetLastError() { return 0; }
+inline int cudaMemsetAsync(void* p, int v, size_t n, cudaStream_t) {
+  memset(p, v, n);
+  return 0;
+}
 template <class F> int cudaOccupancyMaxActiveBlocksPerMultiprocessor(int* b, F, int, size_t) { *b = 1; return 0; }
 // Four multiprocessors: small enough that grid-stride loops take several turns.
 enum { cudaDevAttrMultiProcessorCount = 16 };

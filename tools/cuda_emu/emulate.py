@@ -2,6 +2,7 @@
 their plain PyTorch versions.
 
     python3 tools/cuda_emu/emulate.py [--sanitize] [k1] [k2] [variants]
+        [orbit]
 
 Compiles ``raft_tla_tpu_torch/csrc/step.cu`` (K1, one binary per layout)
 and ``csrc/fingerprint.cu`` (K2) with g++ against ``cuda_runtime.h`` here,
@@ -10,10 +11,11 @@ which runs every CUDA thread as a host thread, and holds their outputs to
 kernels' contract (K1: ``valid`` on every lane, the rest where ``valid``
 is set; K2: every key), bit-exact.  ``variants`` runs K1's prescan and
 sig-prune orbit scans (and both) on the symmetric layouts, each against
-the same plain step.  ``--sanitize`` builds with
-``-fsanitize=undefined,address``.  It rehearses a kernel's logic before a
-run on the card; it says nothing of speed, and cannot catch what only the
-GPU compiler does.  Work files go to ``build/cuda_emu/``.  Exits 1 on a
+the same plain step; ``orbit`` runs the orbit-key entry of ``step.cu``
+(``rt_orbit_key_launch``) against ``ops/orbit_key.plain_keys``.
+``--sanitize`` builds with ``-fsanitize=undefined,address``.  It
+rehearses a kernel's logic before a run on the card; it says nothing of
+speed, and cannot catch what only the GPU compiler does.  Work files go to ``build/cuda_emu/``.  Exits 1 on a
 mismatch.
 """
 
@@ -222,6 +224,80 @@ def variants(flags) -> bool:
     return ok
 
 
+def orbit_case(name, b, axes, view, rows, flags, valid=None) -> bool:
+    """The orbit-key entry on ``rows`` (canonical successors where
+    ``valid``, or everywhere when it is None) against its plain version,
+    every key."""
+    from raft_tla_tpu_torch.ops import orbit_key
+    N, W = rows.shape
+    P, Q = sym.group_sizes(b, axes)
+    nv = b.n_values if "Value" in axes else 0
+    d = WORK / "orbit"
+    d.mkdir(parents=True, exist_ok=True)
+    np.array([N, W, P, Q, nv, views.KERNEL_CODES[view]],
+             np.int32).tofile(d / "meta.i32")
+    rows.numpy().astype(np.int32).tofile(d / "rows.i32")
+    (d / "valid.u8").unlink(missing_ok=True)
+    if valid is not None:
+        valid.numpy().astype(np.uint8).tofile(d / "valid.u8")
+    c = fpr.lane_constants(W).astype(np.uint32)
+    c[0].tofile(d / "c1.u32")
+    c[1].tofile(d / "c2.u32")
+    np.asarray(sym.kernel_tables(b, axes), np.int8).tofile(d / "group.i8")
+    np.asarray(sym.kernel_rank_maps(b, axes), np.int16).tofile(
+        d / "rmaps.i16")
+    exe = binary("step.cu", "orbit_main.cpp", pallas_step.layout_defines(b),
+                 flags)
+    if subprocess.run([str(exe), str(d)]).returncode:
+        print(f"orbit key {name}: the emulation failed")
+        return False
+    got = np.fromfile(d / "o_keys.i32", np.int32).reshape(2, N)
+    hi, lo = orbit_key.plain_keys(rows, b, axes, view, valid)
+    bad = int(((got[0] != hi.numpy()) | (got[1] != lo.numpy())).sum())
+    masked = "" if valid is None else f" ({int(valid.sum())} valid)"
+    print(f"orbit key {name}: rows {N}{masked}, W {W}, |G| {P * Q}: "
+          f"mismatches {bad}", flush=True)
+    return bad == 0
+
+
+def orbit(flags) -> bool:
+    """The orbit-key entry on successor rows at |G| = 1 (a view alone), 6,
+    12 (Server x Value), 120, and in faithful mode with rank maps."""
+    flag = Bounds(3, 2, 2, 1, 2)
+    fflag = Bounds(3, 2, 2, 1, 2, history=True, max_elections=6)
+    five = Bounds(5, 2, 2, 0, 2)
+    ok = True
+
+    def succs(b, spec, invs, n):
+        """Every lane's successor row, as the IR step hands them over, with
+        random words in the invalid lanes' rows (which the kernel must not
+        read), and the lanes' mask."""
+        rows = reachable_rows(b, spec, invs, n)
+        out = kernels.build_step(b, spec, invs)(rows)
+        flat = out["svecs"].reshape(-1, out["svecs"].shape[-1]).clone()
+        valid = out["valid"].reshape(-1)
+        noise = np.random.default_rng(3).integers(
+            -2**31, 2**31, size=tuple(flat.shape), dtype=np.int64)
+        flat[~valid] = torch.as_tensor(noise.astype(np.int32))[~valid]
+        return flat, valid
+
+    srows, sval = succs(flag, "full", FULL5, 60)
+    ok &= orbit_case("flagship Server, valid rows only", flag, ("Server",),
+                     None, srows[sval].contiguous(), flags)
+    for axes, view in (((), "deadvotes"), (("Server",), None),
+                       (("Server", "Value"), "deadvotes"), (("Value",), None)):
+        ok &= orbit_case(f"flagship {axes} {view}", flag, axes, view, srows,
+                         flags, sval)
+    frows, fval = succs(fflag, "full", INV7, 30)
+    for axes in (("Server",), ("Server", "Value")):
+        ok &= orbit_case(f"faithful {axes}", fflag, axes, "deadvotes", frows,
+                         flags, fval)
+    erows, evals = succs(five, "election", ("NoTwoLeaders",), 8)
+    ok &= orbit_case("election 5s/2v, Server", five, ("Server",), None,
+                     erows[:400].contiguous(), flags, evals[:400])
+    return ok
+
+
 def k2(flags) -> bool:
     exe = binary("fingerprint.cu", "fp_main.cpp", {}, flags)
     rng = np.random.default_rng(1)
@@ -249,8 +325,8 @@ def k2(flags) -> bool:
 
 def main(argv) -> int:
     flags = SANITIZE if "--sanitize" in argv else FLAGS
-    which = [a for a in argv if a in ("k1", "k2", "variants")] \
-        or ["k1", "k2", "variants"]
+    which = [a for a in argv if a in ("k1", "k2", "variants", "orbit")] \
+        or ["k1", "k2", "variants", "orbit"]
     ok = True
     if "k2" in which:
         ok &= k2(flags)
@@ -258,6 +334,8 @@ def main(argv) -> int:
         ok &= k1(flags)
     if "variants" in which:
         ok &= variants(flags)
+    if "orbit" in which:
+        ok &= orbit(flags)
     print("all bit-exact" if ok else "MISMATCH")
     return 0 if ok else 1
 
