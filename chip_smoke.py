@@ -401,6 +401,30 @@ P16C_ORBIT_CASES = (
 # boundary past it.
 P19_STOP_CHUNKS = 700
 
+# Phase 20: the serving path.  The manifest: the 16 jobs of
+# runs/serve_ab.py (4 bins of 2-server election universes: the toy x8,
+# its Server quotient x4, max_term 3 x2, max_msgs 3 x2), phase 3's
+# 3-server election (t2 l0 m1) unreduced and under SYMMETRY Server,
+# twophase at 7 RMs, a seeded violation (the toy under ``count(role = 2)
+# <= 0``: the first leader breaks it) and a width-unsafe job (max_term 99,
+# rejected at admission).  The counts (states, diameter, transitions) of
+# each completing cfg: the toy's and its quotient's the JAX package's
+# (README), max_term 3's states and diameter too, max_msgs 3's states from
+# runs/serve_ab.out's aggregate (136,492 over the 16 jobs), the 3-server
+# election's states and edges from 13a's JAX run, its quotient 17c's, and
+# twophase phase 16's; the rest of each triple from the port's engine on
+# the CPU (tests/test_torch_serve*.py hold the port's lanes to the JAX
+# service).  Every lane is also held to a solo Engine on the card.
+P20_EXPECT = {"toy": (3_014, 17, 5_274), "sym": (1_514, 17, 2_675),
+              "t3": (44_765, 25, 87_068), "m3": (8_397, 19, 17_172),
+              "e3": (142_538, 31, 238_302), "e3sym": P17C_EXPECT,
+              "tp7": TP_EXPECT}
+P20_JOBS = (["toy"] * 8 + ["sym"] * 4 + ["t3"] * 2 + ["m3"] * 2
+            + ["e3", "e3sym", "tp7", "viol", "wide"])
+# the serve CLI's defaults (--chunk 1024 --depth 2)
+P20_CHUNK = 1024
+P20_DEPTH = 2
+
 
 def fail(msg: str) -> None:
     print(f"FAIL: {msg}", flush=True)
@@ -509,7 +533,7 @@ def phase0():
                (5, 2, 2, 0, 2), (6, 1, 2, 0, 1),
                (3, 2, 2, 1, 2, 6), (3, 2, 2, 1, 1, 6), (5, 2, 2, 0, 2, 6),
                (2, 1, 2, 1, 2, 4), (2, 2, 2, 1, 2, 4), (3, 1, 2, 0, 1, 6),
-               (3, 1, 3, 0, 4, 6), SIM_LAYOUT}
+               (3, 1, 3, 0, 4, 6), (2, 1, 2, 0, 3), SIM_LAYOUT}
     jobs = {(pallas_fp.SOURCE, ())}
     for lay in layouts:
         d = pallas_step.layout_defines(bounds_of(lay))
@@ -2904,6 +2928,289 @@ def phase19(results):
     results["ring_phase19"] = out
 
 
+def p20_manifest(work: Path) -> str:
+    """The manifest of docstring item 20 (``P20_JOBS``), one JSON line a
+    job, cfg paths absolute."""
+    toy = write_cfg("p20-toy", 2, 1, "NoTwoLeaders")
+    viol = write_cfg("p20-viol", 2, 1, "NoTwoLeaders\n    count(role = 2) "
+                     "<= 0")
+    e3 = write_cfg("p20-e3", 3, 1, "NoTwoLeaders")
+    rm = ", ".join(f"r{i + 1}" for i in range(TP_RMS))
+    base = {"spec": "election", "max_term": 2, "max_log": 0, "max_msgs": 2}
+    kinds = {"toy": dict(base, cfg=toy), "sym": dict(base, cfg=toy,
+                                                      symmetry=True),
+             "t3": dict(base, cfg=toy, max_term=3),
+             "m3": dict(base, cfg=toy, max_msgs=3),
+             "e3": dict(base, cfg=e3, max_msgs=1),
+             "e3sym": dict(base, cfg=e3, max_msgs=1, symmetry=True),
+             "tp7": {"spec": "twophase", "cfg_text": "SPECIFICATION Spec\n"
+                     f"CONSTANT RM = {{{rm}}}\nINVARIANT TCConsistent\n"},
+             "viol": dict(base, cfg=viol),
+             "wide": dict(base, cfg=toy, max_term=99)}
+    seen: dict = {}
+    lines = []
+    for kind in P20_JOBS:
+        i = seen[kind] = seen.get(kind, -1) + 1
+        jid = kind if P20_JOBS.count(kind) == 1 else f"{kind}-{i}"
+        lines.append(json.dumps(dict(kinds[kind], id=jid)))
+    path = work / "jobs.jsonl"
+    path.write_text("\n".join(lines) + "\n")
+    return str(path)
+
+
+def p20_kind(jid: str) -> str:
+    return jid.rsplit("-", 1)[0] if jid[-1].isdigit() else jid
+
+
+def p20_canon(out: Path) -> dict:
+    from raft_tla_tpu_torch.serve.chaos import (canon_events, canon_record,
+                                                last_records)
+    return {jid: (canon_record(r), canon_events(r["events"]))
+            for jid, r in last_records(str(out)).items()}
+
+
+def phase20(results):
+    """The serving path on the card (docstring item 20)."""
+    for fn in (phase20a, phase20b, phase20c):
+        t0 = time.monotonic()
+        fn(results)
+        say(f"{fn.__name__} took {time.monotonic() - t0:.1f} s")
+
+
+def phase20a(results):
+    import urllib.request
+    from raft_tla_tpu_torch.engine import Engine
+    from raft_tla_tpu_torch.obs import monitor
+    from raft_tla_tpu_torch.obs import regress
+    from raft_tla_tpu_torch.obs.metrics import metrics_port
+    from raft_tla_tpu_torch.obs.openmetrics import MetricsServer
+    from raft_tla_tpu_torch.obs.trace import ENV_TRACE
+    from raft_tla_tpu_torch.serve import batch, jobs
+    from raft_tla_tpu_torch.serve.service import load_jobs, run_service
+    work = WORK / "p20"
+    shutil.rmtree(work, ignore_errors=True)
+    work.mkdir(parents=True)
+    manifest = p20_manifest(work)
+    out = work / "out"
+    out.mkdir()
+    # what ``--trace --metrics-port 0`` set up in the CLI: the trace gate
+    # and the endpoint over the out dir, in this (the supervising) process
+    os.environ[ENV_TRACE] = "1"
+    server = MetricsServer(str(out), port=metrics_port(0),
+                           snapshot_path=str(out / "metrics.events"))
+    # the lanes' outcomes (the violating lane's trace), as the executor
+    # hands them to the service
+    outcomes = {}
+    real_run = batch.BatchExecutor.run
+
+    def run(self, *a, **kw):
+        got = real_run(self, *a, **kw)
+        outcomes.update(got)
+        return got
+
+    batch.BatchExecutor.run = run
+    stats = {}
+    reset_counts()
+    t0 = time.monotonic()
+    try:
+        recs = run_service(load_jobs(manifest), str(out), chunk=P20_CHUNK,
+                           depth=P20_DEPTH, quiet=True, device=DEV,
+                           stats=stats)
+        torch.cuda.synchronize()
+        wall = time.monotonic() - t0
+        launches = read_counts()
+        with urllib.request.urlopen(server.url, timeout=30) as resp:
+            scrape = resp.read().decode("utf-8")
+    finally:
+        server.close()
+        batch.BatchExecutor.run = real_run
+        os.environ.pop(ENV_TRACE, None)
+    by = {r["job_id"]: r for r in recs}
+    bad = []
+    for jid, r in by.items():
+        kind = p20_kind(jid)
+        want = {"viol": "violation", "wide": "rejected"}.get(kind,
+                                                             "completed")
+        if r["status"] != want:
+            bad.append(f"{jid}: {r['status']} ({r.get('error')})")
+        elif kind in P20_EXPECT and (r["n_states"], r["diameter"],
+                                     r["n_transitions"]) != P20_EXPECT[kind]:
+            bad.append(f"{jid}: {r['n_states']}, {r['diameter']}, "
+                       f"{r['n_transitions']} != {P20_EXPECT[kind]}")
+    if set(by) != {json.loads(ln)["id"] for ln in open(manifest)} or bad:
+        fail(f"phase 20a: {bad or sorted(by)}")
+    if by["wide"]["reason"] != "width-unsafe":
+        fail(f"phase 20a: wide rejected for {by['wide']['reason']}")
+    # every lane against a solo Engine of its cfg on the card: counts,
+    # levels, the coverage of its last segment; the violating lane's
+    # verdict and trace
+    solo_walls = {}
+    for job in load_jobs(manifest):
+        kind = p20_kind(job.job_id)
+        if kind == "wide" or kind in solo_walls:
+            continue
+        config = jobs.admit(job).config
+        t1 = time.monotonic()
+        solo = Engine(config, device=DEV).check()
+        solo_walls[kind] = round(time.monotonic() - t1, 2)
+        for jid, r in by.items():
+            if p20_kind(jid) != kind:
+                continue
+            lane = outcomes[jid].result
+            if kind == "viol":
+                if lane.violation is None or \
+                        lane.violation.invariant != \
+                        solo.violation.invariant or \
+                        lane.violation.trace != solo.violation.trace:
+                    fail(f"phase 20a: {jid}'s verdict or trace differs "
+                         "from the solo run's")
+                continue
+            segs = [json.loads(ln) for ln in open(r["events"])]
+            cov = [e for e in segs if e["event"] == "segment"][-1]
+            if (r["n_states"], r["diameter"], r["n_transitions"],
+                    r["levels"], cov["coverage"]) != (
+                    solo.n_states, solo.diameter, solo.n_transitions,
+                    solo.levels, dict(solo.coverage)):
+                fail(f"phase 20a: {jid} differs from its solo run")
+    # the scrape parses: every line a TYPE header or a series and a number
+    series = {}
+    for ln in scrape.splitlines():
+        if ln.startswith("# TYPE "):
+            continue
+        name, _, val = ln.rpartition(" ")
+        series[name] = float(val)
+    ended = [j for j in by if series.get(
+        f'raft_tla_runs_ended_total{{outcome="ok",tenant="{j}"}}') == 1]
+    # the queue gauge counts every log whose run_start has no run_end yet:
+    # with --trace, the scheduler's span log (sched-<pid>.events), as in
+    # the reference
+    open_logs = len(list(out.glob("sched-*.events")))
+    if len(ended) != len(by) - 2 \
+            or series.get("raft_tla_queue_depth") != open_logs:
+        fail(f"phase 20a: the scrape's runs ended ok {len(ended)} of "
+             f"{len(by) - 2}, queue depth "
+             f"{series.get('raft_tla_queue_depth')}")
+    # raft-tla-monitor-torch OUT renders every tenant
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        mrc = monitor.main([str(out)])
+    rows = {ln.split(".events")[0] for ln in buf.getvalue().splitlines()
+            if ".events " in ln}
+    if mrc != 0 or not set(by) <= rows:
+        fail(f"phase 20a: the monitor rendered {sorted(rows)}")
+    # the regress sentinel on the served logs: ingest, then the 3-server
+    # election's own record against its baseline (--history)
+    hist = str(work / "history.jsonl")
+    with contextlib.redirect_stdout(io.StringIO()):
+        rc_in = regress.main(["ingest", *sorted(
+            str(p) for p in out.glob("*.events")), "--history", hist])
+        rc_ck = regress.main(["check", str(out / "e3.events"),
+                              "--history", hist])
+    if (rc_in, rc_ck) != (0, 0):
+        fail(f"phase 20a: regress ingest/check exit {rc_in}/{rc_ck}")
+    spans = [json.loads(ln) for p in out.glob("sched-*.events")
+             for ln in open(p)]
+    n_spans = sum(1 for e in spans if e["event"] == "span")
+    states = sum(r.get("n_states", 0) for r in recs)
+    bins = stats["bins"]
+    say(f"phase 20a: {len(by)} jobs in {len(bins)} bins through run_service "
+        f"on the card (chunk {P20_CHUNK}, depth {P20_DEPTH}, --trace, "
+        f"--metrics-port): wall {wall:.2f} s, {states:,} states summed, "
+        f"{states / wall:,.0f} states/s; dispatches {stats['dispatches']}, "
+        f"peak in flight {stats['peak_inflight']}, async builds "
+        f"{stats['async_compiles']}, build walls s "
+        f"{stats['compile_wall_s']}; K1 launches {launches['step']}, K2 "
+        f"launches {launches['fingerprint']}, plain step calls "
+        f"{launches['plain step']}, plain orbit-key calls "
+        f"{launches['plain orbit key']}; trace spans {n_spans}; scrape "
+        f"{len(series)} series; solo walls s {solo_walls}")
+    for tag, b in bins.items():
+        say(f"phase 20a {tag}: {b['lanes']} lanes, {b['dispatches']} "
+            f"dispatches, {b['rows']:,} rows, step "
+            f"{b['step_ms'] / max(1, b['dispatches']):.4f} ms a dispatch "
+            f"(CUDA events), build {stats['compile_wall_s'].get(tag)} s")
+    if launches["step"] < 1 or launches["fingerprint"] < 1 \
+            or launches["plain step"] or launches["plain orbit key"]:
+        fail(f"phase 20a: kernel counts {launches}")
+    if stats["peak_inflight"] != P20_DEPTH or not n_spans:
+        fail(f"phase 20a: peak in flight {stats['peak_inflight']}, spans "
+             f"{n_spans}")
+    results["launches_phase20_serve"] = launches
+    results["p20"] = {"wall": wall, "canon": p20_canon(out),
+                      "manifest": manifest, "states": states}
+
+
+def phase20b(results):
+    """The same manifest through the serve CLI at ``--depth 1`` (the
+    synchronous baseline, for its wall), with ``--compile-cache`` at the
+    kernel libraries' directory and ``--metrics-port 0``: the same
+    canonical records and logs as 20a."""
+    from raft_tla_tpu_torch.ops import build
+    from raft_tla_tpu_torch.serve import service
+    p20 = results["p20"]
+    out = WORK / "p20" / "out-depth1"
+    err = io.StringIO()
+    reset_counts()
+    t0 = time.monotonic()
+    with contextlib.redirect_stdout(io.StringIO()) as said, \
+            contextlib.redirect_stderr(err):
+        code = service.main([p20["manifest"], "--out", str(out), "--chunk",
+                             str(P20_CHUNK), "--depth", "1",
+                             "--compile-cache", str(build.BUILD_DIR),
+                             "--metrics-port", "0", "--device", DEV,
+                             "--quiet"])
+    torch.cuda.synchronize()
+    wall = time.monotonic() - t0
+    launches = read_counts()
+    same = p20_canon(out) == p20["canon"]
+    said_k = [ln for ln in err.getvalue().splitlines()
+              if ln.startswith("Kernel launches:")]
+    say(f"phase 20b: the same manifest at --depth 1 through the CLI: exit "
+        f"{code}, wall {wall:.2f} s against 20a's {p20['wall']:.2f} s "
+        f"(depth {P20_DEPTH}), {p20['states'] / wall:,.0f} states/s; K1 "
+        f"launches {launches['step']}, K2 {launches['fingerprint']}; "
+        f"records and logs equal to 20a's: {same}; the CLI's own line: "
+        f"{said_k[-1] if said_k else None}")
+    if code != 0 or not same or "metrics endpoint: http://127.0.0.1:" \
+            not in said.getvalue() or launches["plain step"]:
+        fail(f"phase 20b: {err.getvalue()[-600:]}")
+    results["p20"]["depth1_wall"] = wall
+
+
+def phase20c(results):
+    """The worker pool under chaos: ``python -m raft_tla_tpu_torch.serve.
+    chaos`` with 2 workers on the toy bins (the toy and its quotient), the
+    first worker SIGKILLed after 2 segment events; every job's canonical
+    record and event log equal to the in-process pass."""
+    from raft_tla_tpu_torch.serve import chaos
+    work = WORK / "p20" / "chaos"
+    cfg = write_cfg("p20-toy", 2, 1, "NoTwoLeaders")
+    t0 = time.monotonic()
+    with contextlib.redirect_stdout(io.StringIO()) as said, \
+            contextlib.redirect_stderr(io.StringIO()) as err:
+        code = chaos.main([cfg, "--workdir", str(work), "--jobs", "4",
+                           "--workers", "2", "--chunk", "256", "--max-msgs",
+                           "2", "--kill-after-segments", "2", "--device",
+                           DEV, "--quiet"])
+    wall = time.monotonic() - t0
+    reported = []
+    for p in sorted((work / "pool-out" / "pool").glob("w*.out")):
+        ln = [x for x in p.read_text().splitlines()
+              if x.startswith("Kernel launches:")]
+        reported.append(ln[-1][len("Kernel launches: "):] if ln else None)
+    events = [json.loads(ln)["event"] for ln in
+              open(work / "pool-out" / "pool.events")]
+    say(f"phase 20c: serve.chaos, 4 toy jobs on 2 workers, a worker "
+        f"SIGKILLed after 2 segments: exit {code}; "
+        f"{(said.getvalue() + err.getvalue()).strip().splitlines()[-1]}; "
+        f"worker spawns {events.count('worker_spawn')}, losses "
+        f"{events.count('worker_lost')}; kernel launches reported by worker "
+        f"{reported}; wall {wall:.1f} s")
+    if code != 0 or events.count("worker_lost") < 1 \
+            or not any(r and not r.startswith("step 0") for r in reported):
+        fail(f"phase 20c: {err.getvalue()[-800:]}")
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device visible to torch", file=sys.stderr)
@@ -2914,7 +3221,7 @@ def main() -> int:
         return 2
     phases = [phase1, phase2, phase3, phase4, phase5, phase6, phase7,
               phase8, phase9, phase10, phase11, phase12, phase13, phase14,
-              phase15, phase16, phase17, phase18, phase19]
+              phase15, phase16, phase17, phase18, phase19, phase20]
     t_all = time.monotonic()
     card = phase0()
     results = {}
@@ -2955,7 +3262,8 @@ def main() -> int:
                              "phase14a", "phase14b_campaign", "phase15",
                              "phase15d_fleet", "phase16a", "phase16c",
                              "phase16d", "phase17b", "phase17c",
-                             "phase19_paged", "phase19_streamed")},
+                             "phase19_paged", "phase19_streamed",
+                             "phase20_serve")},
             "audit_launches": {
                 "phase10": results["audit_launches_phase10"][name]},
             "mismatches": r["mismatches"],

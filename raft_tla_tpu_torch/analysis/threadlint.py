@@ -3,12 +3,14 @@
 The port's copy of ``raft_tla_tpu/analysis/threadlint.py``: the same
 model, rules, finding codes and ``# lint: thread-ok <reason>`` waiver,
 walking ``raft_tla_tpu_torch/``.  The threads it models are the ones
-the DDD engine and the campaign run on: the background flush worker
-(``utils/flushq.DedupWorker``), the upload prefetcher
+the DDD engine, the campaign and the service run on: the background
+flush worker (``utils/flushq.DedupWorker``), the upload prefetcher
 (``utils/prefetch.BlockPrefetcher``), the shared dedup pool
 (``utils/keyset``: the executor ``submit``/``map`` of the partitioned
 master keys), the non-blocking ``EventLog`` writer (``obs/events``),
-the chaos stalkers (``campaign/chaos``), the lock-protected
+the chaos stalkers (``campaign/chaos``, ``serve/chaos``), the serve
+scheduler's bin-build threads (``serve/sched``), the metrics endpoint's
+server and snapshot threads (``obs/openmetrics``), the lock-protected
 ``PhaseTimers`` (``obs/phases``) and the module-global locks of the
 kernel and host-store builds (``ops/build``, ``utils/native``).  Each
 model entry point and each lock the pass found is listed on

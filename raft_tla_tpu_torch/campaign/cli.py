@@ -12,14 +12,15 @@ stopped losslessly and the campaign resumes on the next allocation.
 
 Exit codes mirror the check CLI's: 0 verdict-ok, 11 deadlock,
 12 violation, 13 liveness, 1 rejected / gave up / error.  The reference's
-``--cpu`` is ``--device cpu`` here; ``--metrics-port`` is refused (the
-metrics endpoint is ROADMAP.md queue A item 12).
+``--cpu`` is ``--device cpu`` here.  ``--metrics-port`` exposes the live
+OpenMetrics endpoint over the workdir's event logs (obs/openmetrics.py).
 """
 
 from __future__ import annotations
 
 import argparse
 import json
+import os
 import signal
 import sys
 
@@ -86,7 +87,11 @@ def build_argparser() -> argparse.ArgumentParser:
                    choices=("full", "frontier"),
                    help="the children's --retention (default: full)")
     p.add_argument("--cpu", action="store_true", help=argparse.SUPPRESS)
-    p.add_argument("--metrics-port", default=None, help=argparse.SUPPRESS)
+    p.add_argument("--metrics-port", type=int, default=None, metavar="P",
+                   help="expose a live OpenMetrics endpoint on "
+                        "127.0.0.1:P (0 = ephemeral port; also via "
+                        "RAFT_TLA_METRICS) over the workdir's event "
+                        "logs, snapshotted into WORKDIR/metrics.events")
     p.add_argument("--json", action="store_true",
                    help="print the final CampaignResult as JSON")
     p.add_argument("--quiet", action="store_true")
@@ -98,9 +103,6 @@ def main(argv=None) -> int:
     args = p.parse_args(argv)
     if args.cpu:
         p.error("--cpu is spelled --device cpu in raft_tla_tpu_torch")
-    if args.metrics_port is not None:
-        p.error("--metrics-port is not ported to raft_tla_tpu_torch yet "
-                "(ROADMAP.md queue A: item 12, obs/metrics)")
     options = {}
     for name in _OPTION_FLAGS:
         v = getattr(args, name)
@@ -129,7 +131,23 @@ def main(argv=None) -> int:
     signal.signal(signal.SIGUSR1,
                   lambda *_: sup.request_preempt("preempt-signal",
                                                  "SIGUSR1"))
-    res = sup.run()
+    from raft_tla_tpu_torch.obs.metrics import metrics_port
+    mport = metrics_port(args.metrics_port)
+    mserver = None
+    if mport is not None:
+        # Reads the campaign's own event logs (run.events, the children's
+        # logs) from this supervising process; the children never see it.
+        from raft_tla_tpu_torch.obs.openmetrics import MetricsServer
+        os.makedirs(args.workdir, exist_ok=True)
+        mserver = MetricsServer(
+            args.workdir, port=mport,
+            snapshot_path=os.path.join(args.workdir, "metrics.events"))
+        print(f"metrics endpoint: {mserver.url}", flush=True)
+    try:
+        res = sup.run()
+    finally:
+        if mserver is not None:
+            mserver.close()
     if args.json:
         print(json.dumps(res.__dict__, sort_keys=True))
     elif not args.quiet:

@@ -85,8 +85,6 @@ _NOT_PORTED = {
     "--reshard-to": _PARALLEL, "--reshard-cap": _PARALLEL,
     "--devices": _PARALLEL, "--seg-chunks": _PARALLEL,
     "--cp-lanes": _PARALLEL, "--slices": _PARALLEL,
-    "--compile-cache": _LATER.format(
-        "item 12, serving (the warm-start cache)"),
     "--cpu": "is spelled --device cpu in raft_tla_tpu_torch",
 }
 ENGINES = ("device", "paged", "streamed", "ddd", "host", "ref")
@@ -242,6 +240,11 @@ def build_argparser() -> argparse.ArgumentParser:
                         "votesGranted of non-Candidates)")
     p.add_argument("--device", default="cuda", choices=("cuda", "cpu"),
                    help="where the search runs (default: cuda)")
+    p.add_argument("--compile-cache", default=None, metavar="DIR",
+                   help="persistent kernel-library directory: the nvcc "
+                        "builds land there, named by source hash (also "
+                        "via RAFT_TLA_COMPILE_CACHE; default "
+                        "build/torch_kernels)")
     p.add_argument("--emit-tlc", metavar="DIR",
                    help="also write MCraft.tla/MCraft.cfg for a stock-TLC "
                         "parity run, then continue")
@@ -525,6 +528,8 @@ def run(argv=None) -> tuple:
             # utils/prefetch, ops/devdedup, ops/kernels), as in the
             # reference: every engine of the invocation reads the same
             os.environ[env] = getattr(args, flag)
+    from raft_tla_tpu_torch.serve.sched import enable_compile_cache
+    enable_compile_cache(args.compile_cache)
     from raft_tla_tpu_torch import __version__
     from raft_tla_tpu_torch.frontend.registry import resolve_model
     from raft_tla_tpu_torch.utils.cfgparse import load_cfg

@@ -66,6 +66,10 @@ class EngineResult:
     # property checked after the search, in order
     liveness: list = dataclasses.field(default_factory=list)
 
+    @property
+    def states_per_sec(self) -> float:
+        return self.n_states / self.wall_s if self.wall_s > 0 else float("inf")
+
 
 @dataclasses.dataclass
 class RefResult:

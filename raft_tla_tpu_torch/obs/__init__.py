@@ -10,11 +10,14 @@ port's copy of ``raft_tla_tpu/obs/``.
 - ``trace`` / ``collect`` / ``perfetto`` / ``tracecli`` — schema-v8
   spans, the merged timeline, its Chrome trace export and the wall
   attribution report.
-- ``history`` — the fiducial drift policy the campaign health check
-  uses.
-
-The reference's ``monitor``, ``metrics``, ``openmetrics`` and ``regress``
-are not ported yet (ROADMAP.md queue A item 12).
+- ``history`` / ``regress`` — the fiducial drift policy (the campaign
+  health check's), the history store and the regression sentinel CLI
+  (``raft-tla-regress-torch``).
+- ``metrics`` / ``openmetrics`` — the live metrics layer: streaming
+  reducers over the event logs and the OpenMetrics endpoint
+  (``--metrics-port``).
+- ``monitor`` — the one-line heartbeat over a log or a directory of logs
+  (``raft-tla-monitor-torch``).
 """
 
 from raft_tla_tpu_torch.obs.events import (  # noqa: F401

@@ -1,11 +1,10 @@
-"""``python -m raft_tla_tpu_torch.obs`` — external event emission; the
-port's copy of ``raft_tla_tpu/obs/__main__.py``.
+"""``python -m raft_tla_tpu_torch.obs`` — external event emission and the
+monitor; the port's copy of ``raft_tla_tpu/obs/__main__.py``.
 
 ``emit`` appends one schema-validated event to a run log from outside
 the engine process — a stop script stamps ``stop_requested`` this way
 before signaling, so a reader can attribute a clean stop vs a crash vs a
-raw SIGINT.  ``monitor`` is refused: the monitor is not ported yet
-(ROADMAP.md queue A item 12).
+raw SIGINT.  ``monitor`` is an alias for ``raft-tla-monitor-torch``.
 """
 
 from __future__ import annotations
@@ -42,16 +41,13 @@ def main(argv=None) -> int:
                     default=[], metavar="K=V",
                     help="extra schema field (JSON-parsed when possible)")
 
-    pm = sub.add_parser("monitor", help="not ported yet (ROADMAP.md "
-                                        "queue A item 12)")
+    pm = sub.add_parser("monitor", help="alias for raft-tla-monitor-torch")
     pm.add_argument("rest", nargs=argparse.REMAINDER)
 
     args = p.parse_args(argv)
     if args.cmd == "monitor":
-        print("obs monitor: the monitor is not ported to raft_tla_tpu_torch "
-              "yet (ROADMAP.md queue A: item 12, obs/monitor, metrics, "
-              "history and regress)", file=sys.stderr)
-        return 2
+        from raft_tla_tpu_torch.obs import monitor
+        return monitor.main(args.rest)
 
     fields = dict(args.field)
     for k in ("reason", "source", "pid"):

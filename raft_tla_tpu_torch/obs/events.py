@@ -20,9 +20,8 @@ engines emit, byte-compatible with the reference's logs.
 
 The schema, its version history and :func:`validate_event` are the
 reference's verbatim, so a log written by either package validates the
-same way in both; the event types and fields of layers the port does not
-carry yet (the walker fleet's ``sim``, the serve pool's lifecycle, the
-metrics snapshot) stay in the schema for that reason.
+same way in both; the event types of every layer (the walker fleet's
+``sim``, the serve pool's lifecycle, the metrics snapshot) are in it.
 
 Event grammar (``SCHEMA_VERSION`` = 10; earlier-version lines remain
 valid) —
@@ -92,7 +91,7 @@ optional, both invalid on a ``"v" < 6`` line:
                            runs/prefetch_ab.py reports)
 
 Version 7 adds the serve worker-pool supervision lifecycle (emitted by
-the serve worker pool, never by the engines themselves) — all four
+``serve/pool``, never by the engines themselves) — all four
 event types invalid on a ``"v" < 7`` line:
 
 ``worker_spawn``   worker, pid [+ jobs, bins, chunk, respawn, attempt]
@@ -133,9 +132,8 @@ engines regardless of the gate so A/B off arms stay comparable) and
 ``dev_dedup_hits`` (cumulative rows the device set dropped pre-export;
 only present when the gate is on).
 
-Version 10 adds the live metrics layer (the reference's obs/metrics.py,
-ROADMAP item 12 in the port; gated by ``--metrics-port``, never on by
-default):
+Version 10 adds the live metrics layer (obs/metrics.py — gated by
+``--metrics-port`` / ``RAFT_TLA_METRICS``, never on by default):
 
 ``metrics_snapshot``  metrics [+ port, root]
                    (one periodic snapshot of the streaming-reducer

@@ -33,6 +33,7 @@ FLAGS = (ARCH, "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
 
 _lock = threading.Lock()
 _loaded: dict = {}
+_building: dict = {}       # library key -> its build lock
 
 
 def nvcc() -> str:
@@ -103,17 +104,27 @@ def prebuild(jobs) -> None:
 
 def library(source: str, defines: dict | None = None) -> ctypes.CDLL:
     """The loaded library of ``csrc/<source>`` built with ``defines``
-    (the sources are hashed once per process and library, not per call)."""
+    (the sources are hashed once per process and library, not per call).
+    Threads asking for the same library wait for one build; different
+    libraries build side by side (the serve scheduler's bin builds)."""
     defines = dict(defines or {})
-    key = (source, tuple(sorted(defines.items())))
+    key = (source, tuple(sorted(defines.items())), str(BUILD_DIR))
     with _lock:
-        if key not in _loaded:
+        if key in _loaded:
+            return _loaded[key]
+        gate = _building.setdefault(key, threading.Lock())
+    with gate:
+        with _lock:
+            lib = _loaded.get(key)
+        if lib is None:
             so, _ = _paths(source, defines)
             job = _start(source, defines)
             if job is not None:
                 _finish(job)
-            _loaded[key] = ctypes.CDLL(str(so))
-        return _loaded[key]
+            lib = ctypes.CDLL(str(so))
+            with _lock:
+                _loaded[key] = lib
+    return lib
 
 
 def ptxas_report(source: str, defines: dict | None = None) -> str:

@@ -109,6 +109,30 @@ def megakernel_setting() -> str:
     return force if force in ("on", "off") else "auto"
 
 
+def step_signature(bounds: Bounds, spec: str, invariants: tuple,
+                   symmetry: tuple, view: str | None,
+                   device="cpu") -> tuple:
+    """Everything a step is built over — universe bounds, spec subset,
+    invariant set, symmetry axes, the dedup-key view, and the
+    construction-time gate resolutions for ``device`` (megakernel,
+    prescan with the device's rule, sig-prune, the device dedup set).
+    THE definition of a step's identity (the reference's
+    ``ops/kernels.step_signature``): ``serve/batch.bin_key`` delegates
+    here, so two jobs share a lane-packed bin (and a build) iff this
+    tuple matches — bins can never mix step variants when a gate flips
+    between admissions.  Gates resolve per call (environment + device),
+    so compute it where the step it stands for is built."""
+    # call-time import: devdedup imports device_engine, which imports
+    # this module
+    from raft_tla_tpu_torch.ops import devdedup
+    symmetry = tuple(symmetry)
+    return (bounds, spec, tuple(invariants), symmetry, view,
+            ("megakernel", megakernel_setting()),
+            ("prescan", prescan_enabled(bounds, symmetry, device)),
+            ("sigprune", sigprune_enabled(bounds, symmetry)),
+            ("devdedup", devdedup.devdedup_backend()))
+
+
 _ROUTED_MEGAKERNEL = (
     "RAFT_TLA_MEGAKERNEL=on does not compose with the EP-routed step "
     "(build_step_routed); use the dense step (--route 0) or leave the "

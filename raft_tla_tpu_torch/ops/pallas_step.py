@@ -156,16 +156,21 @@ def build_step(bounds: Bounds, spec: str = "full", invariants: tuple = (),
     scan's variant (None: the gates, each with its rule for ``device``);
     without symmetry there is one scan.  ``count=True`` gives the K1
     launcher a ``stats`` tensor of the :data:`STATS` counters that its
-    launches add to."""
+    launches add to.  The step carries ``signature``
+    (ops/kernels.step_signature), resolved here with its gates."""
     device = torch.device(device)
+    signature = kernels.step_signature(bounds, spec, invariants, symmetry,
+                                       view, device)
     if prescan is None:
         prescan = kernels.prescan_enabled(bounds, symmetry, device)
     if sigprune is None:
         sigprune = kernels.sigprune_enabled(bounds, symmetry)
     prescan, sigprune = bool(prescan and symmetry), bool(sigprune and symmetry)
     if device.type == "cpu":
-        return kernels.build_step(bounds, spec, invariants, symmetry, view,
+        step = kernels.build_step(bounds, spec, invariants, symmetry, view,
                                   prescan=prescan, sigprune=sigprune)
+        step.signature = signature
+        return step
     if device.type != "cuda":
         raise ValueError(f"no step kernel for device {device}")
     if kernels.megakernel_setting() == "off":
@@ -231,6 +236,7 @@ def build_step(bounds: Bounds, spec: str = "full", invariants: tuple = (),
     step.keep = (table, consts, codes, prog, group, rmaps)  # what `fixed`
     #                                                          points to
     step.variant, step.stats = variant, stats
+    step.signature = signature      # the step's identity (serve bins)
     return step
 
 

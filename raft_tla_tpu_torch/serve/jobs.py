@@ -1,5 +1,6 @@
-"""Job model + admission — the part of ``raft_tla_tpu/serve/jobs.py``
-the campaign supervisor needs (its admission gate).
+"""Job model + admission — the port of ``raft_tla_tpu/serve/jobs.py``,
+the seam between a tenant's job and the service (and the campaign
+supervisor's admission gate).
 
 A :class:`CheckJob` is one bounded check: a TLC model config (text or
 path) plus the engine options the check CLI would take as flags,
@@ -11,13 +12,19 @@ before any step build, so a rejected job costs zero device time.
 Resolution is the CLI's own (``check.resolve_check_config``) for a Raft
 spec; a non-Raft spec (``twophase``) maps its cfg through its model
 adapter (frontend/registry.py), whose schema check plays the width pass's
-role.  The rest of ``serve/`` (the executor, scheduler, pool and daemon)
-is ROADMAP.md queue A item 12.
+role.
+
+Tenant isolation: :meth:`CheckJob.digest` is a stable content hash of
+(cfg text, options), the reference's byte for byte.  The service stamps
+it into every result record, so two tenants' outputs can never be
+silently conflated.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import hashlib
+import json
 
 from raft_tla_tpu_torch.analysis import report as _report
 from raft_tla_tpu_torch.config import Bounds, CheckConfig
@@ -83,9 +90,7 @@ class CheckJob:
     """One tenant's bounded check: identity + cfg + options.
 
     ``cfg_text`` wins over ``cfg_path`` when both are set (a queue entry
-    may inline the config so the job file is self-contained).  The
-    reference's content digest and ``to_dict`` serve the service and its
-    pool (ROADMAP.md queue A item 12).
+    may inline the config so the job file is self-contained).
     """
 
     job_id: str
@@ -101,6 +106,15 @@ class CheckJob:
                              "nor cfg_path")
         with open(self.cfg_path, "r", encoding="utf-8") as f:
             return f.read()
+
+    def digest(self) -> str:
+        """Stable content hash of (cfg text, options) — the tenant
+        isolation tag stamped into every result record."""
+        payload = json.dumps(
+            {"cfg": self.read_cfg_text(),
+             "options": dataclasses.asdict(self.options)},
+            sort_keys=True)
+        return hashlib.sha256(payload.encode()).hexdigest()[:16]
 
     @classmethod
     def from_dict(cls, d: dict, job_id: str | None = None) -> "CheckJob":
@@ -122,6 +136,20 @@ class CheckJob:
         opts = JobOptions(properties=tuple(props), **d)
         return cls(job_id=str(jid), options=opts,
                    cfg_path=cfg_path, cfg_text=cfg_text)
+
+    def to_dict(self) -> dict:
+        """The inverse of :meth:`from_dict`, with the cfg TEXT inlined —
+        the self-contained job form the worker pool writes into per-child
+        manifests (a child must not depend on the parent's cwd or on a
+        cfg file still existing).  ``from_dict(to_dict(j))`` digests
+        identically to ``j`` (the digest covers text, never path)."""
+        d = {"id": self.job_id, "cfg_text": self.read_cfg_text()}
+        defaults = JobOptions()
+        for f in dataclasses.fields(JobOptions):
+            v = getattr(self.options, f.name)
+            if v != getattr(defaults, f.name):
+                d[f.name] = list(v) if isinstance(v, tuple) else v
+        return d
 
 
 # --------------------------------------------------------------------------

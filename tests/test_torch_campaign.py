@@ -203,7 +203,7 @@ def test_child_argv_and_one_card_mesh(tmp_path):
     with pytest.raises(ValueError, match="item 11"):
         sup._reshard(1, 2)
     from raft_tla_tpu_torch.campaign.cli import main as campaign_main
-    for extra in (["--cpu"], ["--metrics-port", "0"]):
+    for extra in (["--cpu"], ["--metrics-port", "x"]):
         with pytest.raises(SystemExit) as e:
             campaign_main([cfg, "--workdir", str(tmp_path / "c"), *extra])
         assert e.value.code == 2

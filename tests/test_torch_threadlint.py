@@ -117,11 +117,13 @@ def test_port_tree_is_modeled_and_clean():
             if not p.startswith("raft_tla_tpu_torch/analysis/")
             for i, line in enumerate(src.splitlines())
             if re.search(r"\bThread\(|\.submit\(self\.|ex\.map\(", line)}
-    assert spawns == scan and len(spawns) == 6
+    assert spawns == scan and len(spawns) == 10
     targets = {t[1] for _p, _l, t in res.spawn_sites}
     assert {"ChaosMonkey._stalk", "EventLog._writer", "DedupWorker._run",
             "PartitionedMasterKeys._dedup_partition",
-            "BlockPrefetcher._run"} <= targets
+            "BlockPrefetcher._run", "DispatchScheduler._compile",
+            "PoolChaos._stalk.<locals>.run", "MetricsServer._serve_http",
+            "MetricsServer._snapshot_loop"} <= targets
     assert {("raft_tla_tpu_torch/ops/build.py", "_lock"),
             ("raft_tla_tpu_torch/utils/native.py", "_lock"),
             ("raft_tla_tpu_torch/utils/keyset.py", "_POOL_LOCK")} <= \
