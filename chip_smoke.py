@@ -56,17 +56,17 @@ Phases (each prints a line; any failure exits non-zero):
    summed per BFS level, equals that level's count), then the store audits
    and K1 against the plain step on rows from every level;
 7. the faithful flagship, ``runs/MC3s2v.cfg --faithful`` (SYMMETRY Server,
-   W = 113), cut in depth: its first 1,300 chunks through the device
-   engine, whose 25 whole levels must equal those of the whole run on the
+   W = 113), cut in depth: its first 500 chunks through the device
+   engine, whose whole levels must equal those of the whole run on the
    card (no JAX run reached its end), its store audit, K1 against the
    plain step on rows from every level, then its next 100 chunks under
    torch.profiler: the card's time by kernel, K1's kernel time per chunk
    inside the engine, and the card's idle share;
-8. the same profile of phase 5's run (the flagship) after its first 1,300
+8. the same profile of phase 5's run (the flagship) after its first 500
    chunks;
 9. the flagship through the DDD engine (``--engine ddd --host-dedup on
    --prefetch on``, full retention; on the card both gates equal their
-   auto), cut in depth by ``--deadline 20``: every level it completes
+   auto), cut in depth by ``--deadline 8``: every level it completes
    (20 at least) equals phase 5's, K1 launched on every chunk, no
    plain-step call; its wall, orbits/s, segments, chunks, host syncs per
    chunk, K1's and the filter's milliseconds per chunk (CUDA events), the
@@ -177,6 +177,21 @@ Phases (each prints a line; any failure exits non-zero):
    host store's size (computed from the state count and row width).  ``tools/paged_run.py`` runs the flagship through
    both engines.
 
+20. serving: 20a a 21-job manifest through ``run_service`` (every lane
+   against a solo Engine on the card), 20b the serve CLI at ``--depth 1``,
+   20c the worker pool under chaos;
+21. the shard engine (``--engine shard``, raft_tla_tpu_torch/parallel/):
+   21a phase 4's universe through ``--engine shard --devices 1`` (a world
+   of one): phase 4's counts and levels, K1 launched once a lockstep
+   chunk, its wall beside phase 4's; 21b phase 6's Server x Value universe
+   on four shards on the card, a 1-D mesh and a 2x2 slice mesh (the
+   exchange routes between them): phase 6's counts and levels, the same
+   states on each shard of both meshes; 21c a world-1 run of that universe
+   with ``seg_chunks=8`` and a snapshot after every segment, its last
+   snapshot resharded 1 -> 4 on the card (keys by the orbit-key entry,
+   held to its plain version on the snapshot's rows) and resumed on four
+   shards: phase 6's counts and levels.
+
 The line before the last is ``{"kernels": [...]}``; the last line is
 ``{"ok": true, "device": {...}}``.  Tolerance everywhere: bit-exact (all
 outputs are int32, uint32 bits or bools).
@@ -269,9 +284,9 @@ FAITHFUL_FLAGSHIP_LEVELS = [
     818768, 589784, 268042, 195924, 115648, 39364, 28642, 12300, 2914, 1976,
     508, 72]
 # Phases 7 and 8 run the faithful flagship and the flagship for their first
-# 1,300 chunks (through level 24: 25 whole levels of 58, 13,565,778 orbits
-# of the faithful run), then profile the next 100.
-DEPTH_CHUNKS = 1300
+# 500 chunks (4,096,000 rows expanded: 700 chunks completed 23 levels of the
+# faithful run's 58), then profile the next 100.
+DEPTH_CHUNKS = 500
 PROFILE_WINDOW = 100
 
 
@@ -289,12 +304,13 @@ ELECT5_LEVEL_ENDS = {
     21: 13035600, 22: 20231266, 23: 33043858, 24: 61457382, 25: 92875324,
     26: 140007553, 27: 251752136, 28: 371737651, 29: 524944666,
     30: 899977148}
-ELECT5_DEADLINE = 30.0          # seconds after the first harvest
+ELECT5_DEADLINE = 20.0          # seconds after the first harvest
 STOP_DEADLINE = 1.0             # phase 11's stop, long before the end
 ELECT5_MIN_LEVEL = 20
 # Phase 9: the flagship through DDD stops this long after its first
-# harvest, past level 20 of 58 (the whole run took 67.8-99.5 s).
-DDD_DEADLINE = 20.0
+# harvest, past level 20 of 58 (the whole run took 67.8-99.5 s; 20 s
+# reached level 27, 10 s level 25).
+DDD_DEADLINE = 8.0
 DDD_MIN_LEVELS = 20
 
 
@@ -424,6 +440,14 @@ P20_JOBS = (["toy"] * 8 + ["sym"] * 4 + ["t3"] * 2 + ["m3"] * 2
 # the serve CLI's defaults (--chunk 1024 --depth 2)
 P20_CHUNK = 1024
 P20_DEPTH = 2
+
+# Phase 21: the four shards' routing depth a destination, as a share of a
+# chunk's lanes (B x A); a chunk of phase 6's universe has ~2.7 valid lanes
+# a row, so each owner receives ~2% of them, and an overflow aborts loudly.
+P21_SEND_SHARE = 8
+# 21c's world-1 store: phase 6's 1,827,985 orbits and some room (each
+# snapshot of it writes ~0.8 GB).
+P21_WORLD1_ROWS = 1_900_000
 
 
 def fail(msg: str) -> None:
@@ -1159,6 +1183,7 @@ def phase4(results):
     audit_store(eng, res.n_states, "phase 4")
     results["launches_phase4"] = launches
     results["phase4_levels"] = res.levels
+    results["phase4_wall"] = wall
 
 
 def flagship_levels() -> list:
@@ -1241,6 +1266,7 @@ def phase6(results):
         fail(f"the faithful symmetric run did not go through K1: {launches}")
     audit_store(eng, res.n_states, "phase 6 (Server x Value)")
     results["launches_phase6_sym"] = launches
+    results["phase6_sym_levels"] = res.levels
     # Each representative's orbit size, summed per level.
     t0 = time.monotonic()
     store, sums, start = eng.carry["store"], [], 0
@@ -3211,6 +3237,200 @@ def phase20c(results):
         fail(f"phase 20c: {err.getvalue()[-800:]}")
 
 
+def p21_faithful(extra=()) -> tuple:
+    """Phase 6's Server x Value universe as parsed CLI arguments and its
+    ``CheckConfig``."""
+    from raft_tla_tpu_torch import check
+    cfg = write_cfg("real-faithful-sym", REAL["servers"], REAL["values"],
+                    INV7, "Server Value")
+    args = check.build_argparser().parse_args([
+        cfg, "--spec", "full", "--faithful", "--max-term",
+        str(REAL["max_term"]), "--max-log", str(REAL["max_log"]),
+        "--max-msgs", str(REAL["max_msgs"]), "--chunk", str(MAIN_CHUNK),
+        "--levels", "128", *extra])
+    return args, check.config_of(args)
+
+
+def report_shard(label: str, eng, res, wall: float, launches: dict) -> dict:
+    st = eng.stats
+    chunks = max(1, st["chunks"])
+    row = {"wall_s": round(wall, 2), "chunks": st["chunks"],
+           "step_launches": launches["step"],
+           "plain_step_calls": launches["plain step"],
+           "syncs_per_chunk": round(st["syncs"] / chunks, 3),
+           "k1_ms_per_chunk": round(1e3 * st["step_s"] / chunks, 4),
+           "exchange_ms_per_chunk": round(1e3 * st["exchange_s"] / chunks,
+                                          4),
+           "dedup_ms_per_chunk": round(1e3 * st["dedup_s"] / chunks, 4),
+           "per_shard_states": st["per_shard_states"],
+           "peak_gib": round(torch.cuda.max_memory_allocated() / 2**30, 2)}
+    say(f"{label}: wall {wall:.2f} s, {res.n_states / wall:,.0f} states/s; "
+        f"lockstep chunks {row['chunks']}, K1 launches {launches['step']}, "
+        f"K2 launches {launches['fingerprint']}, plain step calls "
+        f"{launches['plain step']}, plain orbit-key calls "
+        f"{launches['plain orbit key']}; ms/chunk (CUDA events): K1 "
+        f"{row['k1_ms_per_chunk']}, exchange {row['exchange_ms_per_chunk']}"
+        f", dedup {row['dedup_ms_per_chunk']}; host syncs "
+        f"{row['syncs_per_chunk']}/chunk; states by shard "
+        f"{row['per_shard_states']}; peak device memory {row['peak_gib']} "
+        f"GiB")
+    return row
+
+
+def phase21(results):
+    """The shard engine: 21a at a world of one through the CLI, 21b four
+    shards on the card (1-D and 2x2), 21c a world-1 snapshot resharded
+    1 -> 4 on the card and resumed."""
+    phase21a(results)
+    phase21b(results)
+    phase21c(results)
+
+
+def phase21a(results):
+    cfg = write_cfg("real-expr", REAL["servers"], REAL["values"],
+                    REAL_EXPR_INVARIANTS)
+    argv = [cfg, "--spec", "full", "--max-term", str(REAL["max_term"]),
+            "--max-log", str(REAL["max_log"]), "--max-msgs",
+            str(REAL["max_msgs"]), "--chunk", str(MAIN_CHUNK),
+            "--cap", str(1 << 25), "--levels", "128", "--engine", "shard",
+            "--devices", "1"]
+    code, eng, res, out, wall, launches = drive(argv, "shard world-1 run")
+    got = (res.n_states, res.diameter, res.n_transitions)
+    same = res.levels == results["phase4_levels"]
+    say(f"phase 21a: phase 4's universe through --engine shard --devices 1: "
+        f"exit {code}; states {got[0]}, diameter {got[1]}, transitions "
+        f"{got[2]} (expected {REAL_EXPECT}); levels equal to phase 4's: "
+        f"{same}; wall {wall:.2f} s beside phase 4's "
+        f"{results['phase4_wall']:.2f} s (the device engine)")
+    row = report_shard("phase 21a", eng, res, wall, launches)
+    if code != 0 or got != REAL_EXPECT or not same:
+        fail("phase 21a: the shard engine's counts differ from phase 4's")
+    if launches["step"] != eng.stats["chunks"] or launches["plain step"]:
+        fail(f"phase 21a: K1 did not run every chunk alone: {launches}")
+    results["launches_phase21a"] = launches
+    results["shard_phase21a"] = row
+
+
+def phase21b(results):
+    """Four shards on the card: the exchange routes between them."""
+    from raft_tla_tpu_torch.models import spec as SP
+    from raft_tla_tpu_torch.parallel import Mesh, ShardCapacities, ShardEngine
+    _args, config = p21_faithful()
+    A = len(SP.action_table(config.bounds, config.spec))
+    caps = ShardCapacities(n_states=1 << 19, levels=128,
+                           send=MAIN_CHUNK * A // P21_SEND_SHARE)
+    results["p21_caps"] = caps
+    rows = {}
+    for name, mesh in (("1d", Mesh([DEV] * 4)),
+                       ("2x2", Mesh([DEV] * 4, n_slices=2))):
+        reset_counts()
+        t0 = time.monotonic()
+        eng = ShardEngine(config, mesh, caps)
+        res = eng.check()
+        torch.cuda.synchronize()
+        wall = time.monotonic() - t0
+        launches = read_counts()
+        got = (res.n_states, res.diameter, res.n_transitions)
+        say(f"phase 21b: phase 6's Server x Value universe on {mesh}: "
+            f"states {got[0]}, diameter {got[1]}, transitions {got[2]} "
+            f"(expected {FAITHFUL_SYM_EXPECT}); levels equal to phase 6's: "
+            f"{res.levels == results['phase6_sym_levels']}")
+        rows[name] = report_shard(f"phase 21b ({name})", eng, res, wall,
+                                  launches)
+        if got != FAITHFUL_SYM_EXPECT \
+                or res.levels != results["phase6_sym_levels"]:
+            fail(f"phase 21b ({name}): counts differ from phase 6's")
+        if launches["step"] != eng.stats["chunks"] or launches["plain step"] \
+                or launches["plain orbit key"]:
+            fail(f"phase 21b ({name}): K1 did not run every chunk: "
+                 f"{launches}")
+        results[f"launches_phase21b_{name}"] = launches
+        del eng
+    if rows["1d"]["per_shard_states"] != rows["2x2"]["per_shard_states"]:
+        fail("phase 21b: the 1-D and 2x2 meshes own different states")
+    results["shard_phase21b"] = rows
+
+
+def phase21c(results):
+    """A world-1 snapshot (the last a ``seg_chunks=8`` run writes before
+    its final segment), resharded 1 -> 4 on the card, resumed."""
+    from raft_tla_tpu_torch.ops import orbit_key
+    from raft_tla_tpu_torch.parallel import (Mesh, ShardCapacities,
+                                             ShardEngine, reshard_checkpoint)
+    _args, config = p21_faithful()
+    caps1 = ShardCapacities(n_states=P21_WORLD1_ROWS, levels=128)
+    caps4 = results["p21_caps"]
+    snap, out = WORK / "p21c-w1.ckpt", WORK / "p21c-w4.ckpt"
+    clear_snapshot(snap)
+    t0 = time.monotonic()
+    eng = ShardEngine(config, Mesh([DEV]), caps1, seg_chunks=8)
+    res1 = eng.check(checkpoint=str(snap), checkpoint_every_s=0.0)
+    t_run = time.monotonic() - t0
+    segs = eng.stats["segments"]
+    del eng
+    torch.cuda.empty_cache()
+    got1 = (res1.n_states, res1.diameter, res1.n_transitions)
+    orbit_key.launches = 0
+    reset_counts()
+    t0 = time.monotonic()
+    info = reshard_checkpoint(config, caps1, str(snap), str(out), 4,
+                              caps_dst=caps4, device=DEV)
+    torch.cuda.synchronize()
+    t_reshard = time.monotonic() - t0
+    ok_launches = orbit_key.launches
+    plain = read_counts()["plain orbit key"]
+    # the orbit-key entry against its plain version on the snapshot's rows
+    with np.load(snap) as z:
+        rows_np = z["c0"][:int(z["c6"][0])]
+    pick = np.linspace(0, rows_np.shape[0] - 1, 1 << 16).astype(np.int64)
+    rows = torch.as_tensor(rows_np[pick], device=DEV)
+    keyer = orbit_key.build_keyer(config.bounds, tuple(config.symmetry),
+                                  config.view)
+    hi, lo = keyer(rows)
+    rh, rl = orbit_key.plain_keys(rows, config.bounds,
+                                  tuple(config.symmetry), config.view)
+    torch.cuda.synchronize()
+    bad = int(((hi != rh) | (lo != rl)).sum())
+    say(f"phase 21c: world-1 run with seg_chunks=8, a snapshot after every "
+        f"segment but the last: {got1} in {segs} segments, {t_run:.2f} s; "
+        f"its last snapshot resharded 1 -> 4 on the card in "
+        f"{t_reshard:.2f} s: {info['n_states']} states, per shard "
+        f"{info['per_device']}, window {info['window']}, expanded prefix "
+        f"promoted {info['promoted_expanded']}; orbit-key launches "
+        f"{ok_launches}, plain orbit-key calls {plain}; the entry against "
+        f"its plain version on {rows.shape[0]} of the snapshot's rows: "
+        f"mismatches {bad}")
+    if got1 != FAITHFUL_SYM_EXPECT or ok_launches < 1 or plain or bad:
+        fail("phase 21c: the world-1 run or the reshard's keys")
+    del rows_np, rows
+    reset_counts()
+    t0 = time.monotonic()
+    eng = ShardEngine(config, Mesh([DEV] * 4), caps4)
+    res = eng.check(resume=str(out))
+    torch.cuda.synchronize()
+    wall = time.monotonic() - t0
+    launches = read_counts()
+    got = (res.n_states, res.diameter, res.n_transitions)
+    say(f"phase 21c: the resharded snapshot resumed on four shards: states "
+        f"{got[0]}, diameter {got[1]}, transitions {got[2]} (expected "
+        f"{FAITHFUL_SYM_EXPECT}); levels equal to phase 6's: "
+        f"{res.levels == results['phase6_sym_levels']}")
+    row = report_shard("phase 21c (resume)", eng, res, wall, launches)
+    if got != FAITHFUL_SYM_EXPECT \
+            or res.levels != results["phase6_sym_levels"] \
+            or launches["plain step"]:
+        fail("phase 21c: the resumed counts differ from phase 6's")
+    results["launches_phase21c"] = launches
+    results["orbit_key_phase21c"] = ok_launches
+    results["shard_phase21c"] = dict(row, run_s=round(t_run, 2),
+                                     reshard_s=round(t_reshard, 2),
+                                     segments=segs)
+    del eng
+    clear_snapshot(snap)
+    clear_snapshot(out)
+    torch.cuda.empty_cache()
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device visible to torch", file=sys.stderr)
@@ -3221,7 +3441,8 @@ def main() -> int:
         return 2
     phases = [phase1, phase2, phase3, phase4, phase5, phase6, phase7,
               phase8, phase9, phase10, phase11, phase12, phase13, phase14,
-              phase15, phase16, phase17, phase18, phase19, phase20]
+              phase15, phase16, phase17, phase18, phase19, phase20,
+              phase21]
     t_all = time.monotonic()
     card = phase0()
     results = {}
@@ -3263,7 +3484,8 @@ def main() -> int:
                              "phase15d_fleet", "phase16a", "phase16c",
                              "phase16d", "phase17b", "phase17c",
                              "phase19_paged", "phase19_streamed",
-                             "phase20_serve")},
+                             "phase20_serve", "phase21a", "phase21b_1d",
+                             "phase21b_2x2", "phase21c")},
             "audit_launches": {
                 "phase10": results["audit_launches_phase10"][name]},
             "mismatches": r["mismatches"],
@@ -3298,8 +3520,13 @@ def main() -> int:
         "max_abs_err": max(c["max_abs_err"] for c in ok["cases"]),
         "ms": head["ms"], "plain_ms": head["plain_ms"],
         "bound_ms": head["bound_ms"], "bound_by": head["bound_by"],
-        "library_ms": None, "cases": ok["cases"]})
+        "library_ms": None, "cases": ok["cases"],
+        "launches_by_path": {
+            "phase16c": ok["launches"],
+            "phase21c_reshard": results["orbit_key_phase21c"]}})
     kernels[0]["ring_engines"] = results["ring_phase19"]
+    kernels[0]["shard_engine"] = {k: results[f"shard_{k}"] for k in (
+        "phase21a", "phase21b", "phase21c")}
     say(f"total {time.monotonic() - t_all:.1f} s on {card}")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

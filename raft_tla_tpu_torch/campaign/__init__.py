@@ -9,7 +9,7 @@ never the same poison twice), and retries with bounded backoff until the
 check reaches a verdict.  :mod:`~raft_tla_tpu_torch.campaign.chaos` is the
 fault harness that proves it: kill, truncate — finals identical to an
 uninterrupted run.  The port's mesh is one card: resharding between mesh
-sizes waits for ROADMAP.md queue A item 11.
+sizes waits for ROADMAP.md queue A item 11 (b).
 """
 
 from raft_tla_tpu_torch.campaign.integrity import (  # noqa: F401

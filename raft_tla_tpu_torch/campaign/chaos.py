@@ -206,9 +206,25 @@ def main(argv=None) -> int:
     p.add_argument("--kill-after", type=int, default=2, metavar="K",
                    help="SIGKILL after the K-th checkpoint event "
                         "(default 2)")
+    p.add_argument("--mesh-plan", default="1",
+                   help="comma-separated ndev per attempt (default 1; "
+                        "above 1 is refused, ROADMAP.md queue A item 11 "
+                        "(b))")
     p.add_argument("--device", default="cuda", choices=("cuda", "cpu"),
                    help="where the children run (default: cuda)")
+    p.add_argument("--cpu", action="store_true", help=argparse.SUPPRESS)
     args = p.parse_args(argv)
+    if args.cpu:
+        p.error("--cpu is spelled --device cpu in raft_tla_tpu_torch")
+    try:
+        plan = [int(x) for x in args.mesh_plan.split(",")]
+    except ValueError:
+        p.error(f"--mesh-plan {args.mesh_plan!r}: comma-separated integers")
+    if any(n != 1 for n in plan):
+        p.error(f"--mesh-plan {args.mesh_plan}: raft_tla_tpu_torch runs a "
+                "campaign on one card; the ddd-shard engine is not ported "
+                "yet (ROADMAP.md queue A: item 11 (b), the DDD shard engine "
+                "and CP lanes)")
 
     options = {k: getattr(args, k)
                for k in ("max_term", "max_log", "max_msgs")
@@ -226,7 +242,7 @@ def main(argv=None) -> int:
                      policy=CampaignPolicy(checkpoint_every_s=0.0,
                                            backoff_base_s=0.0,
                                            grace_s=5.0, poll_s=0.05),
-                     spawn_hook=monkey.spawn_hook,
+                     mesh_plan=plan, spawn_hook=monkey.spawn_hook,
                      pre_verify_hook=monkey.pre_verify_hook, quiet=False)
     res = sup.run()
     end = final_record(sup.events_path)

@@ -62,7 +62,7 @@ def build_argparser() -> argparse.ArgumentParser:
     p.add_argument("--mesh-plan", default=None, metavar="N,M,...",
                    help="mesh size per resume attempt, last entry "
                         "repeats (default: one card; above 1 is refused, "
-                        "ROADMAP.md queue A item 11)")
+                        "ROADMAP.md queue A item 11 (b))")
     p.add_argument("--checkpoint-every", type=float, default=120.0,
                    metavar="S", help="child snapshot period; 0 = every "
                                      "window boundary (default 120)")

@@ -20,7 +20,7 @@ child process it is allowed to lose:
   twice) and the newest good *generation copy* restored in its place.
   The global window ``W`` is the campaign invariant (``block = W //
   ndev``); the port's mesh is one card, so a mesh plan above 1 and a
-  reshard refuse with a ValueError naming ROADMAP.md queue A item 11
+  reshard refuse with a ValueError naming ROADMAP.md queue A item 11 (b)
   (``ddd-shard``), never falling back to one card silently;
 - **retry bounded** — exponential backoff between resume attempts,
   reset whenever an attempt makes state-count progress, hard-capped at
@@ -260,7 +260,7 @@ class Supervisor:
 
     ``mesh_plan``: None (one card: the port's mesh), a list of mesh sizes
     indexed by attempt (last entry repeats), or a callable ``attempt ->
-    ndev``; any size above 1 is refused (ROADMAP.md queue A item 11).
+    ndev``; any size above 1 is refused (ROADMAP.md queue A item 11 (b)).
 
     ``spawn_hook(sup, proc, attempt)`` / ``pre_verify_hook(sup,
     attempt)`` are the chaos seams: fault injection attaches here, the
@@ -381,14 +381,16 @@ class Supervisor:
             raise ValueError(
                 f"mesh plan ndev={nd}: raft_tla_tpu_torch runs a campaign "
                 "on one card; the ddd-shard engine is not ported yet "
-                "(ROADMAP.md queue A: item 11, parallel engines)")
+                "(ROADMAP.md queue A: item 11 (b), the DDD shard engine "
+                "and CP lanes)")
         return nd
 
     def _reshard(self, ndev_src: int, ndev_dst: int) -> dict:
         raise ValueError(
             f"reshard {ndev_src} -> {ndev_dst} devices: the ddd-shard "
             "engine and its reshard are not ported to raft_tla_tpu_torch "
-            "yet (ROADMAP.md queue A: item 11, parallel engines)")
+            "yet (ROADMAP.md queue A: item 11 (b), the DDD shard engine "
+            "and CP lanes)")
 
     # ----------------------------------------- verify / quarantine / gens
 

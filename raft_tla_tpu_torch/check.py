@@ -20,9 +20,13 @@ search without error (models/liveness.py): ``host`` and ``ref`` without a
 VIEW build the graph with the interpreter; SYMMETRY, a VIEW or ``--engine
 ddd`` build it from the DDD engine's store; otherwise the device engine's.
 
-Six engines: ``--engine device`` (the default: the whole search in the
-card's memory), ``--engine paged`` (the live BFS window in a ring on the
-card, every state paged out to the host store; ``--ring``),
+Seven engines: ``--engine device`` (the default: the whole search in the
+card's memory), ``--engine shard`` (the search over a mesh of shards, each
+owning a slice of fingerprint space: ``--devices``, ``--slices``,
+``--seg-chunks``; on ``--device cpu`` the shards share the CPU, and
+``--reshard-to N`` rewrites a snapshot for N shards), ``--engine paged``
+(the live BFS window in a ring on the card, every state paged out to the
+host store; ``--ring``),
 ``--engine streamed`` (the frontier streamed from the host store in
 blocks, the ring only buffers appends; ``--ring``), ``--engine ddd``
 (exact dedup on the host, the card expands and filters; ``--block``,
@@ -33,8 +37,9 @@ reference's do, while ``--route K`` and ``--deadline`` need it),
 the host) and ``--engine ref`` (the pure-Python oracle).  ``--stats`` (one
 progress line per segment), ``--checkpoint``/``--resume`` and the
 run-event log (``--events PATH``, with ``--phase-timers`` and ``--trace``;
-obs/) need a device-class engine (``device``, ``paged``, ``streamed``,
-``ddd``).  ``--emit-tlc DIR`` writes the run's TLC twin, then runs it.
+obs/) need a device-class engine (``device``, ``shard``, ``paged``,
+``streamed``, ``ddd``).  ``--emit-tlc DIR`` writes the run's TLC twin,
+then runs it.
 
 The reference's step gates take its values and set its environment
 variables process-wide, read at step construction by every engine:
@@ -80,16 +85,17 @@ EXIT_ERROR = 1
 # Reference flags that this slice refuses, each with its refusal: the
 # ROADMAP.md queue item, or the spelling here.
 _LATER = "is not ported to raft_tla_tpu_torch yet (ROADMAP.md queue A: {})"
-_PARALLEL = _LATER.format("item 11, parallel engines")
+_DDD_SHARD = "item 11 (b), the DDD shard engine and CP lanes"
+_PAGED_SHARD = "item 11 (c), the paged shard engine and the fleet"
 _NOT_PORTED = {
-    "--reshard-to": _PARALLEL, "--reshard-cap": _PARALLEL,
-    "--devices": _PARALLEL, "--seg-chunks": _PARALLEL,
-    "--cp-lanes": _PARALLEL, "--slices": _PARALLEL,
+    "--cp-lanes": _LATER.format(_DDD_SHARD),
     "--cpu": "is spelled --device cpu in raft_tla_tpu_torch",
 }
-ENGINES = ("device", "paged", "streamed", "ddd", "host", "ref")
+ENGINES = ("device", "paged", "streamed", "ddd", "shard", "host", "ref")
+# the reference's engines this port refuses, each with its ROADMAP item
+_LATER_ENGINES = {"ddd-shard": _DDD_SHARD, "pagedshard": _PAGED_SHARD}
 # the reference's device-class engines
-_DEVICE_ENGINES = ("device", "paged", "streamed", "ddd")
+_DEVICE_ENGINES = ("device", "paged", "streamed", "ddd", "shard")
 
 
 def build_argparser() -> argparse.ArgumentParser:
@@ -143,6 +149,24 @@ def build_argparser() -> argparse.ArgumentParser:
                         "state) for paged and streamed, whose store is "
                         "bounded by host memory")
     p.add_argument("--levels", type=int, default=256, help="max BFS depth")
+    p.add_argument("--devices", type=int, default=None,
+                   help="mesh size for --engine shard (default: all the "
+                        "cards; with --device cpu, that many shards on the "
+                        "CPU, default 1)")
+    p.add_argument("--slices", type=int, default=None,
+                   help="--engine shard: a 2-D mesh of N slices x "
+                        "(devices/N) shards; the dedup exchange runs within "
+                        "a slice, then across slices in one block a slice")
+    p.add_argument("--seg-chunks", type=int, default=256,
+                   help="initial chunks per search segment for --engine "
+                        "shard (the adaptive pacer tunes it from there)")
+    p.add_argument("--reshard-to", type=int, default=None, metavar="NDEV",
+                   help="--engine shard: instead of searching, rewrite the "
+                        "--resume snapshot for a mesh of NDEV shards into "
+                        "--checkpoint")
+    p.add_argument("--reshard-cap", type=int, default=None, metavar="N",
+                   help="with --reshard-to: grow the destination's store "
+                        "rows per shard (--cap of the resumed run)")
     p.add_argument("--ring", type=int, default=None,
                    help="device ring rows for --engine paged (power of "
                         "two; must hold the widest current+next BFS level "
@@ -462,9 +486,22 @@ def run(argv=None) -> tuple:
         if getattr(args, flag[2:].replace("-", "_")) is not None:
             p.error(f"{flag} {why}")
     if args.engine not in ENGINES:
-        p.error(f"--engine {args.engine} is not ported to raft_tla_tpu_torch "
-                "yet (ROADMAP.md queue A: item 11, the parallel engines); "
-                f"only {', '.join(ENGINES)}")
+        why = _LATER_ENGINES.get(args.engine)
+        p.error(f"--engine {args.engine} " + (
+            _LATER.format(why) if why else
+            f"is not an engine; the engines are {', '.join(ENGINES)}"))
+    if args.reshard_cap and not (args.reshard_to and
+                                 args.engine == "shard"):
+        p.error("--reshard-cap only applies to --reshard-to with "
+                "--engine shard (the DDD snapshots carry no per-device "
+                "store capacity); dropping it silently would ignore "
+                "the configured rescue")
+    if args.reshard_to is not None and args.engine == "ddd":
+        p.error("--reshard-to with --engine ddd "
+                + _LATER.format(_DDD_SHARD))
+    if args.fleet and args.devices not in (None, 1):
+        p.error(f"--fleet --devices {args.devices} "
+                + _LATER.format(_PAGED_SHARD))
     # The reference's engine gates (its check.main), with its exit code 2.
     if args.view and args.simulate:
         p.error("--view does not compose with --simulate (random walks "
@@ -627,6 +664,9 @@ def run(argv=None) -> tuple:
         except Exception as e:
             print(f"Error: {e}", file=sys.stderr)
             return EXIT_ERROR, sim, None
+
+    if args.reshard_to is not None:
+        return reshard(args, config)
 
     t0 = time.monotonic()
     eng = None
@@ -813,6 +853,54 @@ def report_liveness(args, config, props, wf, graph, out: list) -> int:
     return EXIT_OK
 
 
+def reshard(args, config) -> tuple:
+    """``--reshard-to N`` (the reference's reshard arm for ``--engine
+    shard``): rewrite the ``--resume`` snapshot for N shards into
+    ``--checkpoint``, recomputing keys on ``--device``; ``(exit code, None,
+    None)``."""
+    if args.engine != "shard":
+        print("Error: --reshard-to requires --engine shard, ddd or "
+              "ddd-shard", file=sys.stderr)
+        return EXIT_ERROR, None, None
+    if not args.resume or not args.checkpoint:
+        print("Error: --reshard-to needs --resume SRC and --checkpoint DST",
+              file=sys.stderr)
+        return EXIT_ERROR, None, None
+    from raft_tla_tpu_torch.parallel.shard_engine import (
+        ShardCapacities, reshard_checkpoint)
+    caps_src = ShardCapacities(n_states=args.cap, levels=args.levels)
+    caps_dst = ShardCapacities(n_states=args.reshard_cap,
+                               levels=args.levels) \
+        if args.reshard_cap else None
+    try:
+        info = reshard_checkpoint(config, caps_src, args.resume,
+                                  args.checkpoint, args.reshard_to,
+                                  caps_dst=caps_dst, device=args.device)
+    except Exception as e:
+        print(f"Error: {e}", file=sys.stderr)
+        return EXIT_ERROR, None, None
+    print(f"resharded {info['ndev_src']} -> {info['ndev_dst']} devices: "
+          f"{info['n_states']} states, per-device {info['per_device']}, "
+          f"window {info['window']} -> {args.checkpoint}")
+    return EXIT_OK, None, None
+
+
+def make_cli_mesh(args):
+    """The mesh of ``--devices``/``--slices`` on ``--device`` (the
+    reference's ``_make_cli_mesh``): 1-D, or the 2-D slice mesh."""
+    from raft_tla_tpu_torch.parallel.shard_engine import (make_mesh,
+                                                          make_slice_mesh)
+    if args.slices is None:
+        return make_mesh(args.devices, device=args.device)
+    import torch
+    nd = args.devices if args.devices is not None else (
+        torch.cuda.device_count() if args.device == "cuda" else 1)
+    if nd % args.slices:
+        raise SystemExit(
+            f"--devices {nd} not divisible by --slices {args.slices}")
+    return make_slice_mesh(args.slices, nd // args.slices, device=args.device)
+
+
 def make_engine(args, config):
     """The engine of parsed CLI arguments, sized as the reference's CLI
     sizes it (None for the oracle, which is a function)."""
@@ -857,6 +945,13 @@ def make_engine(args, config):
             levels=args.levels, route_rows=args.route,
             retention=args.retention, keep_levels=args.keep_levels),
             device=args.device)
+    if args.engine == "shard":
+        from raft_tla_tpu_torch.parallel.shard_engine import (
+            ShardCapacities, ShardEngine)
+        return ShardEngine(config, make_cli_mesh(args),
+                           ShardCapacities(n_states=args.cap,
+                                           levels=args.levels),
+                           seg_chunks=args.seg_chunks)
     from raft_tla_tpu_torch.device_engine import Capacities, DeviceEngine
     return DeviceEngine(config, Capacities(n_states=args.cap,
                                            levels=args.levels),

@@ -205,81 +205,125 @@ class SyncCounter:
         ev.synchronize()
 
 
-def dedup_insert(tbl_hi, tbl_lo, key_hi, key_lo, active, syncs: SyncCounter):
-    """Batched insert-if-absent of fingerprint pairs into the hash set.
+class DedupInsert:
+    """Batched insert-if-absent of fingerprint pairs into ``shards`` hash
+    sets at once, one probe round at a time: :func:`dedup_insert` drives
+    one set, the shard engine every set of a device together (each shard's
+    keys go to its own table, exactly as if it ran alone).
 
-    ``tbl_hi``/``tbl_lo`` are ``[TB + 1, BUCKET]`` int32 (row ``TB`` is the
-    drop sink) and are updated in place.  Returns ``(is_new, unres)``:
-    ``is_new[c]`` iff candidate c's key was absent and c is the first
-    active candidate (smallest flat index) with that key; ``unres[c]`` iff
-    lane c was still unresolved after ``_MAX_PROBE`` iterations.
+    ``tbl_hi``/``tbl_lo`` are ``[shards * (TB + 1), BUCKET]`` int32, each
+    shard's ``TB`` buckets followed by its drop-sink row, and are updated
+    in place; ``key_hi``/``key_lo``/``active`` are ``[shards * BA]``,
+    shard-major.  After the last round ``is_new[c]`` iff candidate c's key
+    was absent from its shard's table and c is the first active candidate
+    (smallest index within the shard) with that key; ``unres[c]`` iff lane
+    c was still unresolved.
 
     The reference's two stages (``device_engine._dedup_insert``):
 
-    1. batch-first occurrences by a stable sort — one sort on the 64-bit
-       key ``hi * 2^32 + (lo mod 2^32)``, a bijection of the pair (only key
-       equality and id order matter), with inactive lanes on the all-ones
-       key;
+    1. batch-first occurrences by a stable sort — one sort a shard on the
+       64-bit key ``hi * 2^32 + (lo mod 2^32)``, a bijection of the pair
+       (only key equality and id order matter), with inactive lanes on the
+       all-ones key;
     2. a bucketized linear probe in which contenders for a bucket
-       scatter-min their flat index into a hashed claim array (one extra
-       sink slot stands in for ``mode="drop"``), so the smallest index wins
-       — the oracle's first-discoverer-is-parent rule.
-
-    The loop runs on the host: one sync per iteration.
+       scatter-min their index into a hashed claim array of their shard
+       (one extra sink slot stands in for ``mode="drop"``), so the smallest
+       index wins — the oracle's first-discoverer-is-parent rule.
     """
-    BA = key_hi.shape[0]
-    TB = tbl_hi.shape[0] - 1
-    dev = key_hi.device
-    bmask = TB - 1
-    ids = torch.arange(BA, dtype=I64, device=dev)
-    kh64, kl64 = key_hi.to(I64), key_lo.to(I64)
-    h0 = kl64 & bmask               # lo lane is already avalanche-mixed
 
-    skey = torch.where(active, kh64, -1) * (1 << 32) \
-        + (torch.where(active, kl64, -1) & 0xFFFFFFFF)
-    perm = torch.sort(skey, stable=True).indices
-    ph, pl, pa = key_hi[perm], key_lo[perm], active[perm]
-    same_as_prev = torch.zeros(BA, dtype=torch.bool, device=dev)
-    same_as_prev[1:] = (ph[1:] == ph[:-1]) & (pl[1:] == pl[:-1]) \
-        & pa[1:] & pa[:-1]
-    first_of_key = torch.empty(BA, dtype=torch.bool, device=dev)
-    first_of_key[perm] = ~same_as_prev
-    unres = active & first_of_key
+    def __init__(self, tbl_hi, tbl_lo, key_hi, key_lo, active,
+                 shards: int = 1, lanes: int | None = None):
+        S, N = shards, key_hi.shape[0]
+        BA = N // S
+        self.S, self.BA = S, BA
+        self.tbl_hi, self.tbl_lo = tbl_hi, tbl_lo
+        self.key_hi, self.key_lo = key_hi, key_lo
+        self.TB = TB = tbl_hi.shape[0] // S - 1
+        dev = key_hi.device
+        ids = torch.arange(N, dtype=I64, device=dev)
+        kh64, kl64 = key_hi.to(I64), key_lo.to(I64)
+        self.h0 = kl64 & (TB - 1)       # lo lane is already avalanche-mixed
+        # the claim domain follows the batch's lanes, or ``lanes``: a
+        # caller that left the inactive lanes of a batch out (keeping the
+        # rest in order) passes its full size, and the claims, so the
+        # table, are the full batch's
+        L = BA if lanes is None else lanes
+        self.CA = CA = max(1024, 1 << (4 * L - 1).bit_length())
+        if S == 1:
+            self.local, self.base, self.cbase, self.gid0 = ids, 0, 0, 0
+        else:
+            shard = ids // BA
+            self.local = ids - shard * BA
+            self.base, self.cbase, self.gid0 = (shard * (TB + 1),
+                                                shard * CA, shard * BA)
 
-    CA = max(1024, 1 << (4 * BA - 1).bit_length())
-    is_new = torch.zeros(BA, dtype=torch.bool, device=dev)
-    dist = torch.zeros(BA, dtype=I64, device=dev)
-    d = 0
-    while d < _MAX_PROBE and syncs.read(unres.any()):
-        bidx = (h0 + dist) & bmask
-        row_hi, row_lo = tbl_hi[bidx], tbl_lo[bidx]          # [BA, BUCKET]
+        skey = (torch.where(active, kh64, -1) * (1 << 32)
+                + (torch.where(active, kl64, -1) & 0xFFFFFFFF)).view(S, BA)
+        perm = torch.sort(skey, dim=1, stable=True).indices
+        if S > 1:
+            perm = perm + torch.arange(0, N, BA, device=dev)[:, None]
+        perm = perm.reshape(N)
+        ph, pl = key_hi[perm].view(S, BA), key_lo[perm].view(S, BA)
+        pa = active[perm].view(S, BA)
+        same_as_prev = torch.zeros((S, BA), dtype=torch.bool, device=dev)
+        same_as_prev[:, 1:] = (ph[:, 1:] == ph[:, :-1]) \
+            & (pl[:, 1:] == pl[:, :-1]) & pa[:, 1:] & pa[:, :-1]
+        first_of_key = torch.empty(N, dtype=torch.bool, device=dev)
+        first_of_key[perm] = ~same_as_prev.reshape(N)
+        self.unres = active & first_of_key
+        self.is_new = torch.zeros(N, dtype=torch.bool, device=dev)
+        self.dist = torch.zeros(N, dtype=I64, device=dev)
+        self.rounds = 0
+
+    def pending(self) -> torch.Tensor:
+        """Whether each shard still has an unresolved lane (bool ``[S]``
+        on the device)."""
+        return self.unres.view(self.S, self.BA).any(1)
+
+    def round(self) -> None:
+        """One probe round of every shard (a no-op on a resolved one)."""
+        tbl_hi, tbl_lo, key_hi, key_lo = (self.tbl_hi, self.tbl_lo,
+                                          self.key_hi, self.key_lo)
+        local, unres, CA, TB = self.local, self.unres, self.CA, self.TB
+        S, BA = self.S, self.BA
+        bidx = (self.h0 + self.dist) & (TB - 1)
+        gb = bidx + self.base
+        row_hi, row_lo = tbl_hi[gb], tbl_lo[gb]              # [N, BUCKET]
         slot_empty = (row_hi == EMPTY) & (row_lo == EMPTY)
         slot_match = (row_hi == key_hi[:, None]) & (row_lo == key_lo[:, None])
         dup_old = unres & slot_match.any(1)
         has_empty = slot_empty.any(1)
         contend = unres & ~dup_old & has_empty
-        cidx = bidx & (CA - 1)
-        claim = torch.full((CA + 1,), BA, dtype=I64, device=dev)
-        claim.scatter_reduce_(0, torch.where(contend, cidx, CA),
-                              torch.where(contend, ids, BA), reduce="amin")
+        cidx = (bidx & (CA - 1)) + self.cbase
+        claim = torch.full((S * CA + 1,), BA, dtype=I64, device=gb.device)
+        claim.scatter_reduce_(0, torch.where(contend, cidx, S * CA),
+                              torch.where(contend, local, BA), reduce="amin")
         cwin = claim[cidx]
-        won = contend & (cwin == ids)
+        won = contend & (cwin == local)
         # first empty slot of the bucket
         wslot = (slot_empty & (torch.cumsum(slot_empty.to(I32), 1) == 1)
                  ).to(I32).argmax(1)
-        wb = torch.where(won, bidx, TB)
+        wb = torch.where(won, gb, self.base + TB)
         tbl_hi[wb, wslot] = key_hi
         tbl_lo[wb, wslot] = key_lo
         # Losers consult the winner: if it put MY key in MY bucket I am a
         # duplicate; otherwise retry the same bucket (left only when full).
-        wid = cwin.clamp(0, BA - 1)
+        wid = cwin.clamp(0, BA - 1) + self.gid0
         dup_batch = contend & ~won & (bidx[wid] == bidx) \
             & (key_hi[wid] == key_hi) & (key_lo[wid] == key_lo)
-        unres = unres & ~(dup_old | won | dup_batch)
-        dist = dist + (unres & ~has_empty).to(I64)
-        is_new |= won
-        d += 1
-    return is_new, unres
+        self.unres = unres & ~(dup_old | won | dup_batch)
+        self.dist = self.dist + (self.unres & ~has_empty).to(I64)
+        self.is_new |= won
+        self.rounds += 1
+
+
+def dedup_insert(tbl_hi, tbl_lo, key_hi, key_lo, active, syncs: SyncCounter):
+    """One table's :class:`DedupInsert` to the end: ``(is_new, unres)``.
+    The loop runs on the host: one sync per probe round."""
+    ins = DedupInsert(tbl_hi, tbl_lo, key_hi, key_lo, active)
+    while ins.rounds < _MAX_PROBE and syncs.read(ins.unres.any()):
+        ins.round()
+    return ins.is_new, ins.unres
 
 
 class DeviceEngine:

@@ -4,7 +4,7 @@
 folded from one root seed, coverage steering and scenario weights, one
 host copy per dispatch (``engine``); ``scenario`` holds the
 fault-intensity matrices and their runner.  A fleet over more than one
-device is ROADMAP.md queue A item 11.
+device is ROADMAP.md queue A item 11 (c).
 """
 
 from raft_tla_tpu_torch.fleet.engine import FleetResult, FleetSimulator

@@ -1,6 +1,6 @@
 """The walker fleet on one card — the port of
 ``raft_tla_tpu/fleet/engine.py`` (its mesh cut to one device; a fleet over
-more devices is ROADMAP.md queue A item 11).
+more devices is ROADMAP.md queue A item 11 (c)).
 
 The fleet advances every walker by ``steps_per_dispatch`` lockstep steps a
 dispatch, each step one launch of the fused step (K1 on the card), and
@@ -127,7 +127,7 @@ def mesh_devices(mesh: int | None) -> int:
     n = 1 if mesh is None else mesh
     if n != 1:
         raise not_ported(f"a walker fleet over {n} devices",
-                         "item 11, parallel engines")
+                         "item 11 (c), the paged shard engine and the fleet")
     return n
 
 

@@ -87,7 +87,10 @@ def content_digest(arrays) -> str:
         h.update(k.encode())
         h.update(str(a.dtype).encode())
         h.update(repr(a.shape).encode())
-        h.update(np.ascontiguousarray(a).tobytes())
+        b = np.ascontiguousarray(a)
+        # the bytes of tobytes(), hashed in place (no copy of a store)
+        h.update(b.tobytes() if b.dtype.hasobject
+                 else b.reshape(-1).view(np.uint8))
     return h.hexdigest()
 
 

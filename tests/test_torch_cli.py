@@ -102,8 +102,7 @@ def test_cli_refuses_what_is_not_ported(tmp_path):
     cfg = write_cfg(tmp_path / "m.cfg")
     # every reference flag the port lacks names its ROADMAP item (--cpu:
     # its spelling here)
-    for flag in ("--devices", "--seg-chunks", "--reshard-cap",
-                 "--cp-lanes", "--slices", "--cpu"):
+    for flag in ("--cp-lanes", "--cpu"):
         for argv in ([cfg, flag, "x"], [cfg, flag]):
             err = io.StringIO()
             with pytest.raises(SystemExit) as e, redirect_stderr(err):

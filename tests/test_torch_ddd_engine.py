@@ -237,12 +237,12 @@ def test_cli_engine_ddd(tmp_path):
     # (the gate flags take the reference's values: "4" is not one of
     # --device-dedup's; --route is held in test_torch_gates_cli.py)
     for flag in ("--device-dedup", "--devdedup", "--reshard-to",
-                 "--seg-chunks"):
+                 "--cp-lanes"):
         with pytest.raises(SystemExit) as e:
             _run([c, *base, flag, "4"])
         assert e.value.code == 2
     with pytest.raises(SystemExit):
-        _run([c, "--engine", "shard"])
+        _run([c, "--engine", "ddd-shard"])
     # the DDD options are ignored by the other engines, as the reference's
     code, out, _ = _run([c, *base[2:], "--engine", "ref", "--retention",
                          "frontier", "--keep-levels", "--block", "64"])

@@ -153,8 +153,8 @@ def test_cli_refusals_and_failures_are_the_references(tmp_path):
            "ring (caps=PagedCapacities(ring=512" in err
     err = io.StringIO()
     with pytest.raises(SystemExit) as e, redirect_stderr(err):
-        cli.main([cfg, *ELECTION_2S, "--engine", "shard"])
-    assert e.value.code == 2 and "item 11, the parallel engines" in \
+        cli.main([cfg, *ELECTION_2S, "--engine", "pagedshard"])
+    assert e.value.code == 2 and "item 11 (c), the paged shard engine" in \
         err.getvalue()
 
 
